@@ -1,0 +1,417 @@
+"""SSL pretraining trainer (reference pretrain.py entry point).
+
+Counterpart of ``dualvar_tpu/train/pretrain.py``. One train step: uint8 batch
+-> on-device augmentation (the fused CUDA kernel) -> model forward (all
+losses) -> backward -> SGD update -> metric scalars. Runs on ``cuda`` unless
+the caller passes ``device="cpu"``; a missing card is an error, never a
+silent fall back to the CPU.
+
+Usage:
+    python -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
+        --synthetic 1 --max_steps 20
+    python -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
+        --data_root ... --db_path ...
+
+Not ported yet (ROADMAP.md): resume, ``--pretrain`` weight loading, best-k
+checkpoint retention, ``--visualize``, the TensorBoard metrics writer.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import os
+import time
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..aug.pipeline import AugConfig, pretrain_batch
+from ..core.config import PRETRAIN_PRESETS, PretrainConfig
+from ..core.logging import get_logger
+from ..core.meters import AverageMeter, MeterBank, ProgressMeter
+from ..data.indices import load_class_index, load_split
+from ..data.loader import (HostLoader, JpegFrameSource, PretrainDataset,
+                           SyntheticFrameSource, synthetic_entries)
+from ..models.ssl.losses import topk_accuracy
+from .tasks import make_task, total_loss
+
+_AUTOCAST = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def make_optimizer(cfg: PretrainConfig, params, steps_per_epoch: int):
+    """SGD momentum 0.9 with the weight decay added to the gradient, on every
+    parameter (BN and bias included), and MultiStepLR gamma 0.1 at
+    ``epoch * steps_per_epoch`` step boundaries (reference pretrain.py:272,328).
+    Equals the JAX package's ``chain(add_decayed_weights, sgd)``. The
+    scheduler is stepped once per train step."""
+    o = cfg.optim
+    if o.optim != "sgd":
+        raise NotImplementedError(
+            f"optim={o.optim!r}: only 'sgd' is ported (ROADMAP.md)")
+    optimizer = torch.optim.SGD(params, lr=o.lr, momentum=o.momentum,
+                                weight_decay=o.wd, dampening=0,
+                                nesterov=False)
+    scheduler = torch.optim.lr_scheduler.MultiStepLR(
+        optimizer, milestones=[e * steps_per_epoch for e in o.schedule],
+        gamma=0.1)
+    return optimizer, scheduler
+
+
+def compute_metrics(ret: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Per-loss scalars + accuracies, mirroring the reference's dynamic meter
+    discovery (pretrain.py:404-445)."""
+    metrics: dict[str, torch.Tensor] = {}
+    for key, val in ret.items():
+        if not key.endswith("loss"):
+            continue
+        prefix = key.replace("contrast_loss", "").replace("loss", "").rstrip("_")
+        metrics[f"{prefix}_loss"] = val.detach()
+        for lk in (f"{prefix}_logits", f"{prefix}_margin_logits"):
+            if lk in ret:
+                labels = ret[lk.replace("logits", "labels")]
+                logits = ret[lk].detach()
+                metrics[f"{prefix}_top1"] = topk_accuracy(logits, labels, (1,))[0]
+                if prefix == "clip":
+                    metrics["clip_top5"] = topk_accuracy(logits, labels, (1, 5))[1]
+    metrics["total_loss"] = total_loss(ret).detach()
+    return metrics
+
+
+def make_train_step(task, optimizer, scheduler, aug_cfg: AugConfig,
+                    autocast_dtype: torch.dtype = torch.float32):
+    """Returns ``train_step(frames_u8, generator) -> metrics``. The generator
+    feeds the augmentation draws and the segment shuffle."""
+    def train_step(frames_u8: torch.Tensor, generator: torch.Generator):
+        with torch.no_grad():
+            block = pretrain_batch(generator, frames_u8, aug_cfg)
+        with torch.autocast(device_type=frames_u8.device.type,
+                            dtype=autocast_dtype,
+                            enabled=autocast_dtype != torch.float32):
+            ret = task.forward(block, generator=generator)
+        loss = total_loss(ret)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        with torch.no_grad():
+            return compute_metrics(ret)
+
+    return train_step
+
+
+def dataset_variant(dataset: str) -> str:
+    """Map the reference's dataset-name suffixes to pretrain clip-sampler
+    variants (reference get_data, pretrain.py:535-548)."""
+    if dataset.endswith("2clip-stage-prototype"):
+        return "stage-prototype"
+    if dataset.endswith("2clip-prototype"):
+        return "prototype"
+    if dataset.endswith("2clip"):
+        return "2clip"
+    return "stage-prototype"
+
+
+def build_dataset(cfg: PretrainConfig, n_views: int = 3):
+    d = cfg.data
+    if d.synthetic:
+        entries, class_index = synthetic_entries(
+            d.synthetic_videos, d.synthetic_classes)
+        source = SyntheticFrameSource(scale=d.scale_hw)
+    else:
+        name = d.dataset.split("-")[0]  # ucf101 | hmdb51 | k400
+        root = d.data_root or os.path.join("process_data", "data", name)
+        entries = load_split(root, mode="train", which_split=d.which_split,
+                             val_size=d.val_size)
+        class_index = load_class_index(root)
+        source = JpegFrameSource(d.db_path, scale=d.scale_hw)
+    return PretrainDataset(
+        entries=entries, class_index=class_index, source=source,
+        num_frames=d.seq_len, ds=d.ds, rand_flip=cfg.aug.rand_flip,
+        aug_series=cfg.aug.aug_series and n_views == 3,
+        variant=dataset_variant(d.dataset),
+    )
+
+
+def set_path(cfg: PretrainConfig) -> str:
+    """log/{prefix}/pretrain/{name}/ layout (reference pretrain.py:567-591)."""
+    exp = os.path.join(cfg.run.log_root, cfg.run.prefix, "pretrain",
+                       cfg.run.name_prefix)
+    os.makedirs(os.path.join(exp, "model"), exist_ok=True)
+    return exp
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found; pass device='cpu' (--device cpu) to run "
+            "on the CPU on purpose")
+    return device
+
+
+class TrainSetup(NamedTuple):
+    """Everything one run of the train step needs, as ``train()`` builds it."""
+
+    task: object
+    model: torch.nn.Module
+    loader: HostLoader  # the caller closes it
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    train_step: Callable  # (frames_u8, generator) -> metrics
+    generator: torch.Generator  # feeds every random draw of the run
+
+
+def setup_training(cfg: PretrainConfig,
+                   device: str | torch.device = "cuda") -> TrainSetup:
+    """Model, data, optimizer and train step for ``cfg`` on ``device``.
+
+    Model init and every random draw of the run come from explicit
+    generators seeded with ``cfg.run.seed``; the process-global RNG is left
+    untouched."""
+    device = _resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.run.seed)
+        task = make_task(cfg.model)
+    model = task.model.to(device)
+    model.train()
+    loader = HostLoader(build_dataset(cfg, task.n_views),
+                        cfg.optim.batch_size, shuffle=True,
+                        seed=cfg.run.seed, num_workers=cfg.data.workers)
+    aug_cfg = AugConfig(
+        img_dim=cfg.data.img_dim, seq_len=cfg.data.seq_len,
+        aug_temp_consist=cfg.aug.aug_temp_consist,
+        aug_temp_grad_consist=cfg.aug.aug_temp_grad_consist,
+        jitter_order=cfg.aug.jitter_order,
+        fused=cfg.aug.fused_aug,
+    )
+    optimizer, scheduler = make_optimizer(cfg, model.parameters(),
+                                          len(loader))
+    train_step = make_train_step(task, optimizer, scheduler, aug_cfg,
+                                 _AUTOCAST[cfg.model.dtype])
+    generator = torch.Generator().manual_seed(cfg.run.seed)
+    return TrainSetup(task, model, loader, optimizer, scheduler, train_step,
+                      generator)
+
+
+def train(cfg: PretrainConfig, max_steps: int | None = None,
+          device: str | torch.device = "cuda") -> dict[str, float]:
+    """Full pretraining loop. Returns the last logged step's metrics."""
+    device = _resolve_device(device)
+    exp_path = set_path(cfg)
+    logger = get_logger(os.path.join(exp_path, "log"))
+    logger.info(f"=> creating {cfg.model.model} with '{cfg.model.net}' "
+                f"backbone on {device}")
+    if device.type == "cuda":
+        # cuDNN convolutions may use TF32 for float32 inputs (the bf16
+        # autocast path does not depend on it); float32 matmuls stay full
+        # precision, which the float32 heads and losses rely on
+        torch.backends.cudnn.allow_tf32 = True
+        logger.info(
+            f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+            f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+
+    _, model, loader, optimizer, scheduler, train_step, generator = \
+        setup_training(cfg, device)
+    steps_per_epoch = len(loader)
+    logger.info(f"train dataset size {len(loader.dataset)}, "
+                f"{steps_per_epoch} steps/epoch")
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info(f"params: {n_params / 1e6:.2f}M")
+
+    start_epoch = cfg.optim.start_epoch
+    best_acc = 0.0
+    global_step = start_epoch * steps_per_epoch
+    final_metrics: dict[str, float] = {}
+    done = False
+    try:
+        for epoch in range(start_epoch, cfg.optim.epochs):
+            bank = MeterBank()
+            t_data = AverageMeter("Data", ":.3f")
+            t_batch = AverageMeter("Time", ":.3f")
+            progress = ProgressMeter(
+                steps_per_epoch, [],
+                prefix=f"Epoch:[{epoch}/{cfg.optim.epochs}] "
+                       f"lr:{scheduler.get_last_lr()[0]:.5f} ",
+                logger=logger)
+            tic = time.time()
+            end = time.time()
+
+            # overlap the host-to-device copy with compute: batches are placed
+            # on the device one step ahead of consumption
+            def placed_frames():
+                for b in loader.epoch(epoch):
+                    yield torch.from_numpy(b["frames"]).to(
+                        device, non_blocking=True)
+
+            batches = placed_frames()
+            lookahead = next(batches, None)
+            it = -1
+            while lookahead is not None:
+                it += 1
+                frames = lookahead
+                lookahead = next(batches, None)
+                t_data.update(time.time() - end)
+                metrics = train_step(frames, generator)
+                if (it + 1) % cfg.run.print_freq == 0 or it == steps_per_epoch - 1:
+                    # .item() waits for the device: the only sync point
+                    final_metrics = {k: v.item() for k, v in metrics.items()}
+                    if not math.isfinite(final_metrics["total_loss"]):
+                        raise FloatingPointError(
+                            f"non-finite total loss at step {global_step}: "
+                            f"{final_metrics}")
+                    B = cfg.optim.batch_size
+                    for k, v in final_metrics.items():
+                        if k.endswith("_loss"):
+                            bank.loss(k[:-5]).update(v, B)
+                        elif k.endswith("top1"):
+                            bank.acc(k[:-5]).update(v, B)
+                    progress.meters = [t_batch, t_data] + bank.all_meters()
+                    progress.display(it)
+                t_batch.update(time.time() - end)
+                end = time.time()
+                global_step += 1
+                if max_steps is not None and global_step >= max_steps:
+                    done = True
+                    break
+
+            logger.info(
+                f"Epoch: [{epoch}/{cfg.optim.epochs}]\tT-epoch:{time.time() - tic:.2f}")
+            last = epoch == cfg.optim.epochs - 1 or done
+            if (epoch + 1) % cfg.run.eval_freq == 0 or last:
+                train_acc = bank.accs["clip"].avg if "clip" in bank.accs else 0.0
+                best_acc = max(best_acc, train_acc)
+                if (epoch + 1) % cfg.run.save_freq == 0 or last:
+                    path = os.path.join(exp_path, "model",
+                                        f"epoch{epoch}.pth.tar")
+                    torch.save({
+                        "epoch": epoch,
+                        "state_dict": model.state_dict(),
+                        "best_acc": best_acc,
+                        "optimizer": optimizer.state_dict(),
+                        "iteration": global_step,
+                    }, path)
+                    logger.info(f"saved checkpoint {path} (acc {train_acc:.4f})")
+            if done:
+                break
+    finally:
+        loader.close()
+
+    logger.info(
+        f"Training from ep {start_epoch} to ep {cfg.optim.epochs} finished")
+    return final_metrics
+
+
+def _override(group, args, names):
+    """dataclasses.replace(group) with every non-None CLI value in names."""
+    kw = {n: getattr(args, n) for n in names if getattr(args, n) is not None}
+    return dataclasses.replace(group, **kw) if kw else group
+
+
+def main():
+    """Flag surface mirrors the JAX trainer's (reference parser
+    pretrain.py:90-164), cut to what this package supports; a preset
+    supplies the defaults, every flag overrides it."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--preset", default="paper_table1_k400",
+                   choices=sorted(PRETRAIN_PRESETS))
+    # model group
+    p.add_argument("--net", default=None)
+    p.add_argument("--model", default=None)
+    p.add_argument("--mode", "--series_mode", dest="mode", default=None,
+                   choices=[None, "clip-sr-tc", "clip-sr", "clip-sr-dtw"])
+    p.add_argument("--n_series", type=int, default=None)
+    p.add_argument("--series_dim", type=int, default=None)
+    p.add_argument("--shufflerank_theta", type=float, default=None)
+    p.add_argument("--series_T", type=float, default=None)
+    p.add_argument("--aligned_T", type=float, default=None)
+    p.add_argument("--moco-dim", dest="moco_dim", type=int, default=None)
+    p.add_argument("--moco-t", dest="moco_t", type=float, default=None)
+    p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
+                   help="autocast type of the model forward on the card")
+    p.add_argument("--packed_encode", type=int, default=None,
+                   choices=[None, 0, 1],
+                   help="pack the SR shuffled pass into the main encode "
+                        "batch (BN train stats merge across views — "
+                        "documented divergence, see core/config.py)")
+    # aug group
+    p.add_argument("--jitter_order", default=None,
+                   choices=[None, "batch", "sample"])
+    p.add_argument("--aug_temp_consist", type=int, default=None,
+                   choices=[None, 0, 1])
+    p.add_argument("--aug_series", type=int, default=None, choices=[None, 0, 1])
+    p.add_argument("--rand_flip", type=int, default=None, choices=[None, 0, 1])
+    p.add_argument("--fused_aug", default=None,
+                   choices=[None, "auto", "on", "off"],
+                   help="fused CUDA aug kernel (default auto: on for CUDA)")
+    # dataset group
+    p.add_argument("--dataset", default=None)
+    p.add_argument("--data_root", default=None)
+    p.add_argument("--db_path", default=None)
+    p.add_argument("--synthetic", type=int, default=None, choices=[None, 0, 1],
+                   help="deterministic generated frames, no files needed")
+    p.add_argument("--val_size", type=int, default=None)
+    p.add_argument("--seq_len", type=int, default=None)
+    p.add_argument("--ds", type=int, default=None)
+    p.add_argument("--img_dim", type=int, default=None)
+    p.add_argument("-j", "--workers", type=int, default=None)
+    p.add_argument("--num_seq", type=int, default=None)
+    # optim group
+    p.add_argument("--optim", default=None, choices=[None, "sgd"])
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--wd", type=float, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--start_epoch", type=int, default=None)
+    p.add_argument("--schedule", nargs="*", type=int, default=None)
+    # run group
+    p.add_argument("--prefix", default=None)
+    p.add_argument("--name_prefix", default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--print_freq", type=int, default=None)
+    p.add_argument("--eval_freq", type=int, default=None)
+    p.add_argument("--save_freq", type=int, default=None)
+    # run control
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu'")
+    args = p.parse_args()
+
+    cfg = PRETRAIN_PRESETS[args.preset]
+    if args.packed_encode is not None:
+        args.packed_encode = bool(args.packed_encode)
+    data = _override(cfg.data, args,
+                     ("dataset", "data_root", "db_path", "seq_len", "ds",
+                      "img_dim", "workers", "num_seq", "val_size"))
+    if args.synthetic is not None:
+        data = dataclasses.replace(data, synthetic=bool(args.synthetic))
+    if args.data_root or args.db_path:
+        data = dataclasses.replace(data, synthetic=False)
+    aug = _override(cfg.aug, args, ("jitter_order", "fused_aug"))
+    for k in ("aug_temp_consist", "aug_series", "rand_flip"):
+        v = getattr(args, k)
+        if v is not None:
+            aug = dataclasses.replace(aug, **{k: bool(v)})
+    cfg = cfg.replace(
+        data=data,
+        aug=aug,
+        model=_override(cfg.model, args,
+                        ("net", "model", "mode", "n_series", "series_dim",
+                         "shufflerank_theta", "series_T", "aligned_T",
+                         "moco_dim", "moco_t", "dtype", "packed_encode")),
+        optim=_override(
+            dataclasses.replace(
+                cfg.optim,
+                schedule=tuple(args.schedule) if args.schedule else cfg.optim.schedule),
+            args, ("batch_size", "lr", "wd", "epochs", "start_epoch",
+                   "optim")),
+        run=_override(cfg.run, args,
+                      ("prefix", "name_prefix", "seed", "print_freq",
+                       "eval_freq", "save_freq")),
+    )
+    train(cfg, max_steps=args.max_steps, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

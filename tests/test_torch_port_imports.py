@@ -1,0 +1,91 @@
+"""The port stands alone: importing every module of ``dualvar_tpu_torch``
+pulls in neither JAX nor the JAX package, needs no CUDA toolchain, and
+starts nothing; ``chip_smoke.py`` imports none of them either and refuses to
+run without a card.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "dualvar_tpu")
+
+
+def _run(code, **kw):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300, **kw)
+
+
+def test_every_port_module_imports_without_jax():
+    code = """
+import importlib, pkgutil, sys
+import dualvar_tpu_torch
+names = ["dualvar_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    dualvar_tpu_torch.__path__, "dualvar_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in %r)
+assert not bad, bad
+assert "triton" not in sys.modules
+print(len(names))
+""" % (FORBIDDEN,)
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # the slice's modules were all seen
+
+
+def _imported_roots(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def _port_sources():
+    for base, _, files in os.walk(os.path.join(ROOT, "dualvar_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(base, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_names_no_forbidden_import(path):
+    assert not _imported_roots(path) & set(FORBIDDEN), path
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "kernels" not in out.stdout
+
+
+def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
+    import shutil
+
+    from dualvar_tpu_torch.ops import build
+
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has nvcc")
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    build.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_library("aug_fused")
+    assert os.listdir(tmp_path) == []
