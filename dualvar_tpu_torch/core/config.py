@@ -10,9 +10,9 @@ same experiment in both packages; two fields read differently here:
 * ``AugFlags.fused_aug='auto'`` means the hand-written CUDA kernel
   (``ops/aug_fused.py``) whenever the batch lies on a CUDA device.
 
-Presets that name a model or backbone the port does not have yet are kept so
-the names line up; building them raises ``NotImplementedError`` (see
-ROADMAP.md for the porting queue).
+Presets that name a backbone the port does not have yet are kept so the names
+line up; building them raises ``NotImplementedError`` (see ROADMAP.md for the
+porting queue).
 """
 
 from __future__ import annotations
@@ -66,6 +66,10 @@ class ModelConfig:
     moco_k: int = 2048  # pretrain.py:108
     moco_m: float = 0.999  # pretrain.py:110
     moco_t: float = 0.07  # pretrain.py:112
+    # BN batch-shuffle parity mode: >0 splits the key batch into this many
+    # BN groups after a random permutation (reference moco.py:128-173);
+    # 0 = whole-batch BN (default)
+    moco_shuffle_bn: int = 0
     n_series: int = 2  # pretrain.py:97
     series_dim: int = 64  # pretrain.py:96
     shufflerank_theta: float = 0.05  # pretrain.py:98

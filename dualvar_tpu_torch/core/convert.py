@@ -12,6 +12,12 @@ the flax tree, so the mapping is mechanical:
 * the JAX BatchNorm wrapper's inner ``bn`` level is collapsed
   (``bn1/bn/scale`` -> ``bn1.weight``, ``conv1/bn/bn/mean`` ->
   ``conv1.bn.running_mean``).
+
+``from_jax_task_state`` does the same for the MoCo models: the JAX
+``TaskState`` (query ``params`` / ``batch_stats`` plus ``moco`` with
+``params_k``, ``batch_stats_k``, ``queue``, ``series_queue``, ``ptr``) fills
+the port's ``MoCo`` module (``encoder_q.*``, ``encoder_k.*``, ``queue``,
+``series_queue``, ``queue_ptr``). Both queues are row-major in both packages.
 """
 
 from __future__ import annotations
@@ -71,16 +77,56 @@ def from_jax_variables(params: Mapping[str, Any],
                 raise KeyError(f"two leaves map to {key}")
             state[key] = tensor
     if module is not None:
-        want = module.state_dict()
-        missing = sorted(set(want) - set(state))
-        extra = sorted(set(state) - set(want))
-        if missing or extra:
-            raise KeyError(
-                f"state_dict mismatch: unfilled {missing[:5]}, "
-                f"unconsumed {extra[:5]}")
-        for key, tensor in state.items():
-            if tuple(tensor.shape) != tuple(want[key].shape):
-                raise ValueError(
-                    f"{key}: shape {tuple(tensor.shape)} != module's "
-                    f"{tuple(want[key].shape)}")
+        _check_against(state, module)
+    return state
+
+
+def _check_against(state: dict[str, torch.Tensor],
+                   module: torch.nn.Module) -> None:
+    """Every key of the module filled, none left over, shapes equal."""
+    want = module.state_dict()
+    missing = sorted(set(want) - set(state))
+    extra = sorted(set(state) - set(want))
+    if missing or extra:
+        raise KeyError(
+            f"state_dict mismatch: unfilled {missing[:5]}, "
+            f"unconsumed {extra[:5]}")
+    for key, tensor in state.items():
+        if tuple(tensor.shape) != tuple(want[key].shape):
+            raise ValueError(
+                f"{key}: shape {tuple(tensor.shape)} != module's "
+                f"{tuple(want[key].shape)}")
+
+
+def from_jax_task_state(params: Mapping[str, Any],
+                        batch_stats: Mapping[str, Any],
+                        moco: Mapping[str, Any],
+                        module: torch.nn.Module | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """JAX MoCo ``TaskState`` (as numpy trees) -> ``state_dict`` of the
+    port's ``MoCo`` module.
+
+    ``moco`` maps ``params_k``, ``batch_stats_k``, ``queue``, ``ptr`` and,
+    for the time-series model, ``series_queue`` (absent or None for the
+    naked model). Every leaf is consumed into exactly one key; with
+    ``module`` given, the keys and shapes are checked against it as
+    ``from_jax_variables`` does.
+    """
+    known = {"params_k", "batch_stats_k", "queue", "series_queue", "ptr"}
+    if set(moco) - known:
+        raise KeyError(f"unknown MoCo state fields {sorted(set(moco) - known)}")
+    state: dict[str, torch.Tensor] = {}
+    for prefix, tree, stats in (
+            ("encoder_q.", params, batch_stats),
+            ("encoder_k.", moco["params_k"], moco["batch_stats_k"])):
+        for key, tensor in from_jax_variables(tree, stats).items():
+            state[prefix + key] = tensor
+    for key, name in (("queue", "queue"), ("series_queue", "series_queue")):
+        if moco.get(name) is not None:
+            state[key] = torch.from_numpy(
+                np.array(moco[name], dtype=np.float32, order="C"))
+    state["queue_ptr"] = torch.tensor(int(np.asarray(moco["ptr"])),
+                                      dtype=torch.long)
+    if module is not None:
+        _check_against(state, module)
     return state

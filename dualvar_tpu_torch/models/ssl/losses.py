@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ...ops.soft_dtw import soft_dtw
+
 NEG_INF = -1.0e9
 
 
@@ -62,8 +64,14 @@ def nt_xent_loss(features: torch.Tensor, temperature: float,
     assert n_views == 2, features.shape
     # view-major layout (2N, dim): index v*N + i — reference simclr.py:193
     f = features.transpose(0, 1).reshape(2 * N, dim)
-    sim = f @ f.T  # (2N, 2N)
-    idx = torch.arange(2 * N, device=f.device)
+    return _nt_xent_from_sim(f @ f.T, N, temperature, prefix)
+
+
+def _nt_xent_from_sim(sim: torch.Tensor, N: int, temperature: float,
+                      prefix: str) -> dict[str, torch.Tensor]:
+    """The ``[positive | masked row]`` logits and their cross-entropy from a
+    (2N, 2N) similarity matrix in view-major order."""
+    idx = torch.arange(2 * N, device=sim.device)
     clip_id = idx % N
     same_clip = clip_id[:, None] == clip_id[None, :]
     diag = idx[:, None] == idx[None, :]
@@ -72,31 +80,55 @@ def nt_xent_loss(features: torch.Tensor, temperature: float,
     rest = torch.where(same_clip, NEG_INF, sim)  # mask diagonal AND positive
     logits = torch.cat([pos, rest], dim=1) / temperature
     loss = cross_entropy_from_logits(
-        logits, torch.zeros(2 * N, dtype=torch.long, device=f.device))
+        logits, torch.zeros(2 * N, dtype=torch.long, device=sim.device))
     return _loss_dict(prefix, logits, loss)
 
 
+def dtw_alignment_similarity(a: torch.Tensor, b: torch.Tensor,
+                             gamma: float = 0.1) -> torch.Tensor:
+    """Soft-DTW alignment similarity between batches of segment sequences.
+
+    ``a``: (..., n, d), ``b``: (..., m, d), broadcastable on the leading
+    axes. Returns the negated soft-DTW of the *negated* inner-product cost,
+    normalised by max(n, m): a differentiable soft-max over monotone
+    alignment paths of the total segment similarity (the reference's
+    DTW-aligned TC ablation, utils/soft_dtw_cuda.py:321-331), scaled to be
+    comparable with the mean-similarity score.
+
+    The cost tensor of the broadcast product, e.g. (B, K, n, m) for queries
+    against a queue, is flattened to the contiguous row-major (B*K, n, m)
+    float32 batch that the soft-DTW kernels read (``ops/soft_dtw.py``).
+    """
+    D = torch.einsum("...nd,...md->...nm", a, b)
+    lead, (n, m) = D.shape[:-2], D.shape[-2:]
+    flat = (-D).reshape(-1, n, m).contiguous()
+    vals = -soft_dtw(flat, gamma, 0.0)
+    return vals.reshape(lead) / max(n, m)
+
+
 def tc_contrast_loss_global(series_features: torch.Tensor, temperature: float,
-                            prefix: str = "tc_",
-                            align: str = "mean") -> dict[str, torch.Tensor]:
+                            prefix: str = "tc_", align: str = "mean",
+                            dtw_gamma: float = 0.1
+                            ) -> dict[str, torch.Tensor]:
     """Temporal-coherent contrastive loss, SimCLR (global-matrix) form
     (reference model/simclr.py:280-337). ``series_features``:
     (N, 2, n_series, dim), per-segment L2-normalised.
 
     align='mean' (paper default): video-to-video similarity is the mean
     pairwise segment similarity == inner product of segment means.
-    align='dtw' needs the soft-DTW kernels, which are not ported yet; it
-    raises and never falls back to 'mean'.
+    align='dtw': soft-DTW alignment similarity over the segment sequences
+    (the reference's DTW ablation; the soft-DTW kernels on the card).
     """
     N, n_views, n_series, dim = series_features.shape
     assert n_views == 2, series_features.shape
-    if align == "dtw":
-        raise NotImplementedError(
-            "align='dtw' (mode 'clip-sr-dtw') needs the soft-DTW kernels, "
-            "which are still to be ported (ROADMAP.md, kernel queue)")
-    if align != "mean":
+    if align == "mean":
+        return nt_xent_loss(series_features.mean(dim=2), temperature, prefix)
+    if align != "dtw":
         raise ValueError(f"unknown align {align!r}")
-    return nt_xent_loss(series_features.mean(dim=2), temperature, prefix)
+    # view-major sequence batch (2N, s, d), pairwise DTW similarity matrix
+    f = series_features.transpose(0, 1).reshape(2 * N, n_series, dim)
+    sim = dtw_alignment_similarity(f[:, None], f[None, :], gamma=dtw_gamma)
+    return _nt_xent_from_sim(sim, N, temperature, prefix)
 
 
 def shuffle_rank_loss(pair_features: torch.Tensor, theta: float,
@@ -146,3 +178,52 @@ def shuffle_rank_loss(pair_features: torch.Tensor, theta: float,
         f"{prefix}margin_labels": labels,
         f"{prefix}margin_contrast_loss": margin_loss,
     }
+
+
+def moco_contrast_loss(q: torch.Tensor, k: torch.Tensor, queue: torch.Tensor,
+                       temperature: float,
+                       prefix: str = "clip_") -> dict[str, torch.Tensor]:
+    """MoCo InfoNCE against the negative queue (reference model/moco.py:
+    426-438). ``q`` / ``k``: (B, dim) normalised; ``queue``: (K, dim) rows.
+    No gradient flows through k or the queue."""
+    k, queue = k.detach(), queue.detach()
+    pos = (q * k).sum(dim=1, keepdim=True)
+    neg = q @ queue.T  # (B, K)
+    logits = torch.cat([pos, neg], dim=1) / temperature
+    loss = cross_entropy_from_logits(
+        logits, torch.zeros(q.shape[0], dtype=torch.long, device=q.device))
+    return _loss_dict(prefix, logits, loss)
+
+
+def moco_tc_contrast_loss(q_series: torch.Tensor, k_series: torch.Tensor,
+                          series_queue: torch.Tensor, temperature: float,
+                          prefix: str = "tc_", align: str = "mean",
+                          dtw_gamma: float = 0.1) -> dict[str, torch.Tensor]:
+    """Temporal-coherent loss, MoCo (queue) form (reference model/moco.py:
+    404-424). ``q_series`` / ``k_series``: (B, n_series, dim);
+    ``series_queue``: (K, n_series*dim), per-segment layout matching
+    ``reshape(K, n_series, dim)``.
+
+    align='mean' (paper default): mean pairwise segment similarity == inner
+    product of segment means. align='dtw': soft-DTW alignment similarity of
+    every query against its key (B pairs) and against the whole queue (B*K
+    pairs), two calls of the soft-DTW function.
+    """
+    B, n_series, dim = q_series.shape
+    k_series, series_queue = k_series.detach(), series_queue.detach()
+    queue_seq = series_queue.reshape(-1, n_series, dim)
+    if align == "mean":
+        qm = q_series.mean(dim=1)  # (B, dim)
+        pos = (qm * k_series.mean(dim=1)).sum(dim=1, keepdim=True)
+        neg = qm @ queue_seq.mean(dim=1).T
+    elif align == "dtw":
+        pos = dtw_alignment_similarity(q_series, k_series,
+                                       gamma=dtw_gamma)[:, None]
+        neg = dtw_alignment_similarity(q_series[:, None], queue_seq[None, :],
+                                       gamma=dtw_gamma)  # (B, K)
+    else:
+        raise ValueError(f"unknown align {align!r}")
+    logits = torch.cat([pos, neg], dim=1) / temperature
+    loss = cross_entropy_from_logits(
+        logits, torch.zeros(B, dtype=torch.long, device=q_series.device))
+    return _loss_dict(prefix, logits, loss)

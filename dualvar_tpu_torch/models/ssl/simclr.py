@@ -1,11 +1,16 @@
-"""SimCLR TimeSeriesV4, the DualVar pretrain model.
+"""SimCLR models: naked NT-Xent and the DualVar TimeSeriesV4 variant.
 
 Counterpart of ``dualvar_tpu/models/ssl/simclr.py`` (reference
-model/simclr.py:130-400). Forward contract, as in the JAX package: ``block``
-(B, 3, T, H, W, C) — views [clip1-aug-a, clip2, clip1-aug-b] as assembled by
-the stage-prototype dataset — -> dict with clip NT-Xent, TC contrastive and
-the two shuffle-rank margin losses. The module permutes to torch's
-(B, C, T, H, W) inside.
+model/simclr.py). Forward contracts, as in the JAX package:
+
+* ``SimCLRNaked``: ``block`` (B, 2, T, H, W, C) -> dict of
+  clip_{logits,labels,contrast_loss} (reference model/simclr.py:19-121);
+* ``SimCLRTimeSeriesV4``: ``block`` (B, 3, T, H, W, C) — views [clip1-aug-a,
+  clip2, clip1-aug-b] as assembled by the stage-prototype dataset — -> dict
+  with clip NT-Xent, TC contrastive and the two shuffle-rank margin losses
+  (reference model/simclr.py:130-400).
+
+The modules permute to torch's (B, C, T, H, W) inside.
 
 The per-sample segment permutation for shuffle-rank is drawn from an explicit
 ``torch.Generator`` unless ``perm`` (B, n_series) is given (tests pass one so
@@ -64,6 +69,35 @@ def calibrate_shuffled(series_feats: torch.Tensor,
     return series_feats[rows, inv]
 
 
+def planar_views(block: torch.Tensor) -> torch.Tensor:
+    """(B, V, T, H, W, C) -> (B, V, C, T, H, W): a view, and already
+    contiguous when the block comes from the fused augmentation, whose
+    output is planar."""
+    return block.permute(0, 1, 5, 2, 3, 4)
+
+
+class SimCLRNaked(nn.Module):
+    """Reference model/simclr.py:19-121 (SimCLR_Naked)."""
+
+    def __init__(self, network: str = "r21d", dim: int = 128,
+                 temperature: float = 0.07):
+        super().__init__()
+        self.temperature = temperature
+        self.backbone, param = select_backbone(network)
+        self.clip_head = MLPHead(param["feature_size"], dim)
+
+    def forward(self, block: torch.Tensor) -> dict[str, torch.Tensor]:
+        B, n_views = block.shape[:2]
+        assert n_views == 2, block.shape
+        planar = planar_views(block)
+        pooled = global_avg_pool3d(self.backbone(
+            planar.reshape(B * 2, *planar.shape[2:]))).float()
+        with torch.autocast(device_type=block.device.type, enabled=False):
+            emb = l2_normalize(self.clip_head(pooled), axis=1)
+            return nt_xent_loss(emb.reshape(B, 2, -1), self.temperature,
+                                "clip_")
+
+
 class SimCLRTimeSeriesV4(nn.Module):
     """Reference model/simclr.py:130-400 (SimCLR_TimeSeriesV4)."""
 
@@ -71,7 +105,7 @@ class SimCLRTimeSeriesV4(nn.Module):
                  temperature: float = 0.07, n_series: int = 2,
                  series_dim: int = 64, aligned_T: float = 0.07,
                  mode: str = "clip-sr-tc", shufflerank_theta: float = 0.05,
-                 packed_encode: bool = False):
+                 dtw_gamma: float = 0.1, packed_encode: bool = False):
         super().__init__()
         self.temperature = temperature
         self.n_series = n_series
@@ -79,6 +113,7 @@ class SimCLRTimeSeriesV4(nn.Module):
         self.aligned_T = aligned_T
         self.mode = mode
         self.shufflerank_theta = shufflerank_theta
+        self.dtw_gamma = dtw_gamma
         # one (4B) backbone batch [v0, v1, v2, shuffled] instead of
         # (3B) + (B); train-mode BN then sees the merged batch, exactly as
         # the JAX package under the same flag
@@ -104,9 +139,7 @@ class SimCLRTimeSeriesV4(nn.Module):
                 ) -> dict[str, torch.Tensor]:
         B, n_views = block.shape[:2]
         assert n_views == 3, block.shape
-        # (B, 3, C, T, H, W): a view, and already contiguous when the block
-        # comes from the fused augmentation, whose output is planar
-        planar = block.permute(0, 1, 5, 2, 3, 4)
+        planar = planar_views(block)
         x = planar.reshape(B * 3, *planar.shape[2:])
         if self.with_sr:
             if perm is None:
@@ -138,7 +171,8 @@ class SimCLRTimeSeriesV4(nn.Module):
             B, 3, self.n_series, self.series_dim), axis=-1)
         if self.with_tc:
             ret.update(tc_contrast_loss_global(
-                series[:, :2], self.aligned_T, "tc_", align=self.tc_align))
+                series[:, :2], self.aligned_T, "tc_", align=self.tc_align,
+                dtw_gamma=self.dtw_gamma))
 
         if self.with_sr:
             sh_series = l2_normalize(self.series_head(sh_pooled).reshape(

@@ -2,13 +2,18 @@
 
 Counterpart of ``dualvar_tpu/train/pretrain.py``. One train step: uint8 batch
 -> on-device augmentation (the fused CUDA kernel) -> model forward (all
-losses) -> backward -> SGD update -> metric scalars. Runs on ``cuda`` unless
+losses; for MoCo also the key encoder's momentum update and the enqueue) ->
+backward -> SGD update of the task's trainable parameters -> metric scalars.
+The checkpoint's ``state_dict`` is the whole model: for MoCo the query and
+key encoders, both queues and the pointer. Runs on ``cuda`` unless
 the caller passes ``device="cpu"``; a missing card is an error, never a
 silent fall back to the CPU.
 
 Usage:
     python -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
         --synthetic 1 --max_steps 20
+    python -m dualvar_tpu_torch.train.pretrain --preset paper_table2_moco_r21d \\
+        --mode clip-sr-dtw --synthetic 1 --max_steps 20
     python -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
         --data_root ... --db_path ...
 
@@ -173,7 +178,8 @@ def setup_training(cfg: PretrainConfig,
     device = _resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.run.seed)
-        task = make_task(cfg.model)
+        task = make_task(cfg.model,
+                         torch.Generator().manual_seed(cfg.run.seed))
     model = task.model.to(device)
     model.train()
     loader = HostLoader(build_dataset(cfg, task.n_views),
@@ -186,7 +192,7 @@ def setup_training(cfg: PretrainConfig,
         jitter_order=cfg.aug.jitter_order,
         fused=cfg.aug.fused_aug,
     )
-    optimizer, scheduler = make_optimizer(cfg, model.parameters(),
+    optimizer, scheduler = make_optimizer(cfg, task.parameters(),
                                           len(loader))
     train_step = make_train_step(task, optimizer, scheduler, aug_cfg,
                                  _AUTOCAST[cfg.model.dtype])
@@ -212,12 +218,12 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
             f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
             f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
-    _, model, loader, optimizer, scheduler, train_step, generator = \
+    task, model, loader, optimizer, scheduler, train_step, generator = \
         setup_training(cfg, device)
     steps_per_epoch = len(loader)
     logger.info(f"train dataset size {len(loader.dataset)}, "
                 f"{steps_per_epoch} steps/epoch")
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in task.parameters())
     logger.info(f"params: {n_params / 1e6:.2f}M")
 
     start_epoch = cfg.optim.start_epoch
@@ -327,7 +333,11 @@ def main():
     p.add_argument("--series_T", type=float, default=None)
     p.add_argument("--aligned_T", type=float, default=None)
     p.add_argument("--moco-dim", dest="moco_dim", type=int, default=None)
+    p.add_argument("--moco-k", dest="moco_k", type=int, default=None)
+    p.add_argument("--moco-m", dest="moco_m", type=float, default=None)
     p.add_argument("--moco-t", dest="moco_t", type=float, default=None)
+    p.add_argument("--moco_shuffle_bn", type=int, default=None,
+                   help="BN batch-shuffle parity mode: number of BN groups")
     p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
                    help="autocast type of the model forward on the card")
     p.add_argument("--packed_encode", type=int, default=None,
@@ -399,7 +409,8 @@ def main():
         model=_override(cfg.model, args,
                         ("net", "model", "mode", "n_series", "series_dim",
                          "shufflerank_theta", "series_T", "aligned_T",
-                         "moco_dim", "moco_t", "dtype", "packed_encode")),
+                         "moco_dim", "moco_k", "moco_m", "moco_t",
+                         "moco_shuffle_bn", "dtype", "packed_encode")),
         optim=_override(
             dataclasses.replace(
                 cfg.optim,

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's pretrain step spends its time on the GPU.
 
-Runs the ``paper_table1_k400`` train step of ``dualvar_tpu_torch`` (full
-width and depth, synthetic frames, one device-resident batch) under
-``torch.profiler`` for a few steps and prints the device time by kernel, the
-device's busy share of the wall time, and the step time without the profiler.
+Runs the train step of a ``dualvar_tpu_torch`` preset (``paper_table1_k400``
+unless ``--preset`` names another; full width and depth, synthetic frames,
+one device-resident batch) under ``torch.profiler`` for a few steps and
+prints the device time by kernel, the device's busy share of the wall time,
+and the step time without the profiler.
 
     python3 scripts/port_profile_step.py --batch_size 32 [--channels_last 1]
+    python3 scripts/port_profile_step.py --preset paper_table2_moco_r21d \\
+        --mode clip-sr-dtw --batch_size 32
 
 Needs one CUDA device. Prints the card's name and power limit first; every
 number is that card's.
@@ -33,6 +36,11 @@ def main() -> int:
     from dualvar_tpu_torch.train.pretrain import setup_training
 
     p = argparse.ArgumentParser()
+    p.add_argument("--preset", default="paper_table1_k400",
+                   choices=sorted(PRETRAIN_PRESETS))
+    p.add_argument("--mode", default=None,
+                   choices=[None, "clip-sr-tc", "clip-sr", "clip-sr-dtw"],
+                   help="the preset's mode unless given")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--channels_last", type=int, default=0, choices=[0, 1],
@@ -48,9 +56,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip())
 
-    cfg = PRETRAIN_PRESETS["paper_table1_k400"]
+    cfg = PRETRAIN_PRESETS[args.preset]
     cfg = cfg.replace(
         data=dataclasses.replace(cfg.data, synthetic=True),
+        model=dataclasses.replace(cfg.model,
+                                  mode=args.mode or cfg.model.mode),
         optim=dataclasses.replace(cfg.optim, batch_size=args.batch_size))
     setup = setup_training(cfg, "cuda")
     if args.channels_last:
@@ -84,6 +94,7 @@ def main() -> int:
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     print(json.dumps({
+        "preset": args.preset, "mode": cfg.model.mode,
         "batch_size": args.batch_size, "channels_last": args.channels_last,
         "steps": args.steps, "ms_per_step_unprofiled": plain_ms,
         "ms_per_step_profiled": wall_ms / args.steps,

@@ -33,11 +33,19 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
 assert "triton" not in sys.modules
-print(len(names))
+print("\\n".join(names))
 """ % (FORBIDDEN,)
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # the slice's modules were all seen
+    names = out.stdout.split()
+    assert len(names) >= 22  # the slices' modules were all seen
+    assert {"dualvar_tpu_torch.ops.aug_fused", "dualvar_tpu_torch.ops.soft_dtw",
+            "dualvar_tpu_torch.models.ssl.moco",
+            "dualvar_tpu_torch.train.pretrain"} <= set(names)
+    # the kernels' sources are data beside the package, not modules of it
+    assert not any("csrc" in name for name in names)
+    assert sorted(os.listdir(os.path.join(ROOT, "dualvar_tpu_torch", "csrc"))) \
+        == ["aug_fused.cu", "soft_dtw.cu"]
 
 
 def _imported_roots(path):

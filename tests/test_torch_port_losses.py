@@ -8,6 +8,7 @@ packages keep the ``[positive | masked similarity row]`` layout with
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,12 +62,154 @@ def test_tc_global_matches_jax_and_golden():
     assert abs(float(r64["tc_contrast_loss"]) - 3.4785968469) < 1e-8
 
 
-def test_tc_dtw_raises_and_never_falls_back():
+def test_tc_global_rejects_an_unknown_align():
     sf = torch.from_numpy(_load("g_tc_in.npy"))
-    with pytest.raises(NotImplementedError, match="soft-DTW"):
-        TL.tc_contrast_loss_global(sf, 0.11, align="dtw")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="align"):
         TL.tc_contrast_loss_global(sf, 0.11, align="median")
+    qs = torch.from_numpy(_load("g_moco_qs.npy"))
+    with pytest.raises(ValueError, match="align"):
+        TL.moco_tc_contrast_loss(qs, qs, torch.zeros(16, 15), 0.11,
+                                 align="median")
+
+
+# soft-DTW similarities over a temperature of 0.11: |logit| <= 10, and the
+# DTW value carries a few ulp more than a plain inner product
+DTW_ATOL = 2e-5
+
+
+def _compare_dtw(got: dict, want: dict):
+    assert set(got) == set(want)
+    for key, w in want.items():
+        g, w = got[key].detach().numpy(), np.asarray(w)
+        assert g.shape == w.shape, key
+        if key.endswith("labels"):
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, atol=DTW_ATOL, rtol=1e-6,
+                                       err_msg=key)
+
+
+@pytest.mark.parametrize("gamma", [0.1, 1.0])
+def test_dtw_alignment_similarity_matches_jax(gamma):
+    rng = np.random.default_rng(2)
+    a = rng.normal(size=(5, 3, 8)).astype(np.float32)
+    b = rng.normal(size=(7, 4, 8)).astype(np.float32)
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    b /= np.linalg.norm(b, axis=-1, keepdims=True)
+    # paired (5 against the first 5) and broadcast (5 x 7) leading axes
+    for ta, tb in ((a, b[:5]), (a[:, None], b[None, :])):
+        want = np.asarray(JL.dtw_alignment_similarity(
+            jnp.asarray(ta), jnp.asarray(tb), gamma=gamma, impl="xla"))
+        got = TL.dtw_alignment_similarity(torch.from_numpy(ta),
+                                          torch.from_numpy(tb), gamma=gamma)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=1e-5)
+    # one segment each: the alignment similarity is the inner product
+    one = TL.dtw_alignment_similarity(torch.from_numpy(a[:, :1]),
+                                      torch.from_numpy(b[:5, :1]), gamma=0.01)
+    np.testing.assert_allclose(
+        one.numpy(), np.einsum("bid,bjd->b", a[:, :1], b[:5, :1]), rtol=1e-4,
+        atol=1e-6)
+
+
+@pytest.mark.parametrize("gamma", [0.1, 0.5])
+def test_tc_global_dtw_matches_jax_with_gradient(gamma):
+    sf = _load("g_tc_in.npy").astype(np.float32)  # (4, 2, 3, 5)
+    leaf = torch.from_numpy(sf).requires_grad_()
+    got = TL.tc_contrast_loss_global(leaf, 0.11, align="dtw",
+                                     dtw_gamma=gamma)
+    _compare_dtw(got, JL.tc_contrast_loss_global(
+        jnp.asarray(sf), 0.11, align="dtw", dtw_gamma=gamma))
+    assert got["tc_logits"].shape == (8, 9)
+    np.testing.assert_array_equal(
+        got["tc_logits"].detach().numpy() < -1e6,
+        np.asarray(JL.tc_contrast_loss_global(
+            jnp.asarray(sf), 0.11, align="dtw",
+            dtw_gamma=gamma)["tc_logits"]) < -1e6)
+    got["tc_contrast_loss"].backward()
+    want_g = np.asarray(jax.grad(lambda f: JL.tc_contrast_loss_global(
+        f, 0.11, align="dtw", dtw_gamma=gamma)["tc_contrast_loss"])(
+            jnp.asarray(sf)))
+    np.testing.assert_allclose(leaf.grad.numpy(), want_g, atol=2e-5,
+                               rtol=1e-4)
+    # gamma reaches the loss: another value gives another loss
+    other = TL.tc_contrast_loss_global(torch.from_numpy(sf), 0.11,
+                                       align="dtw", dtw_gamma=2 * gamma)
+    assert abs(float(other["tc_contrast_loss"])
+               - float(got["tc_contrast_loss"].detach())) > 1e-4
+
+
+def test_moco_clip_matches_jax_and_golden():
+    q, k = _load("g_moco_q.npy"), _load("g_moco_k.npy")
+    queue = _load("g_moco_queue.npy").T.copy()  # row-major (K, dim)
+    f32 = [torch.from_numpy(a.astype(np.float32)) for a in (q, k, queue)]
+    f32[0].requires_grad_()
+    got = TL.moco_contrast_loss(*f32, 0.07)
+    _compare(
+        {key: val.detach() for key, val in got.items()},
+        JL.moco_contrast_loss(*(jnp.asarray(a, jnp.float32)
+                                for a in (q, k, queue)), 0.07))
+    assert got["clip_logits"].shape == (4, 17)  # 1 + K
+    # no gradient through the key or the queue
+    f32[1].requires_grad_(), f32[2].requires_grad_()
+    TL.moco_contrast_loss(*f32, 0.07)["clip_contrast_loss"].backward()
+    assert f32[0].grad is not None
+    assert f32[1].grad is None and f32[2].grad is None
+    # the reference's float64 value (tests/test_losses.py)
+    r64 = TL.moco_contrast_loss(*(torch.from_numpy(a).double()
+                                  for a in (q, k, queue)), 0.07)
+    assert abs(float(r64["clip_contrast_loss"]) - 3.6123032569885254) < 1e-6
+
+
+def _moco_tc_inputs():
+    qs, ks = _load("g_moco_qs.npy"), _load("g_moco_ks.npy")
+    sq = _load("g_moco_sq.npy").T.copy()  # row-major (K, n_series * dim)
+    return qs, ks, sq
+
+
+def test_moco_tc_mean_matches_jax_and_golden():
+    arrays = _moco_tc_inputs()
+    got = TL.moco_tc_contrast_loss(
+        *(torch.from_numpy(a.astype(np.float32)) for a in arrays), 0.11)
+    _compare(got, JL.moco_tc_contrast_loss(
+        *(jnp.asarray(a, jnp.float32) for a in arrays), 0.11))
+    assert got["tc_logits"].shape == (4, 17)
+    r64 = TL.moco_tc_contrast_loss(
+        *(torch.from_numpy(a).double() for a in arrays), 0.11)
+    assert abs(float(r64["tc_contrast_loss"]) - 3.657632827758789) < 1e-6
+
+
+@pytest.mark.parametrize("gamma", [0.1, 0.5])
+def test_moco_tc_dtw_matches_jax_with_gradient(gamma):
+    qs, ks, sq = (a.astype(np.float32) for a in _moco_tc_inputs())
+    leaf = torch.from_numpy(qs).requires_grad_()
+    got = TL.moco_tc_contrast_loss(leaf, torch.from_numpy(ks),
+                                   torch.from_numpy(sq), 0.11, align="dtw",
+                                   dtw_gamma=gamma)
+    _compare_dtw(got, JL.moco_tc_contrast_loss(
+        jnp.asarray(qs), jnp.asarray(ks), jnp.asarray(sq), 0.11, align="dtw",
+        dtw_gamma=gamma))
+    assert got["tc_logits"].shape == (4, 17)
+    got["tc_contrast_loss"].backward()
+    want_g = np.asarray(jax.grad(lambda f: JL.moco_tc_contrast_loss(
+        f, jnp.asarray(ks), jnp.asarray(sq), 0.11, align="dtw",
+        dtw_gamma=gamma)["tc_contrast_loss"])(jnp.asarray(qs)))
+    np.testing.assert_allclose(leaf.grad.numpy(), want_g, atol=2e-5,
+                               rtol=1e-4)
+
+
+def test_dtw_losses_in_float64_are_finite_and_close_to_float32():
+    """The float64 path the two-step parity test relies on."""
+    qs, ks, sq = _moco_tc_inputs()
+    r64 = TL.moco_tc_contrast_loss(
+        *(torch.from_numpy(a).double() for a in (qs, ks, sq)), 0.11,
+        align="dtw")
+    r32 = TL.moco_tc_contrast_loss(
+        *(torch.from_numpy(a.astype(np.float32)) for a in (qs, ks, sq)), 0.11,
+        align="dtw")
+    assert r64["tc_logits"].dtype == torch.float64
+    np.testing.assert_allclose(r32["tc_logits"].numpy(),
+                               r64["tc_logits"].numpy(), atol=DTW_ATOL)
 
 
 @pytest.mark.parametrize("clip_max", [5.0, None])

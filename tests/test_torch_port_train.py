@@ -129,12 +129,94 @@ def test_train_refuses_a_missing_card_and_unported_models(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train(cfg, max_steps=1)  # device defaults to cuda
-    for model in ("moco_timeseriesv4", "simclr_naked"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_task(dataclasses.replace(cfg.model, model=model))
-    with pytest.raises(NotImplementedError, match="soft-DTW"):
-        train(_smoke_cfg(tmp_path, mode="clip-sr-dtw"), max_steps=1,
-              device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train(_smoke_cfg(tmp_path, mode="clip-sr-dtw"), max_steps=1)
+    with pytest.raises(NotImplementedError, match="unknown model"):
+        make_task(dataclasses.replace(cfg.model, model="byol"))
+    # a preset that names a backbone still to be ported
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_task(PRETRAIN_PRESETS["smoke_moco"].model)
+
+
+@pytest.mark.parametrize("model,n_views,cls", [
+    ("simclr_naked", 2, "SimCLRNaked"),
+    ("simclr_timeseriesv4", 3, "SimCLRTimeSeriesV4"),
+    ("moco_naked", 2, "MoCo"),
+    ("moco_timeseriesv4", 3, "MoCo"),
+])
+def test_make_task_builds_all_four_models(model, n_views, cls):
+    cfg = ModelConfig(model=model, moco_k=16, dtw_gamma=0.3, moco_m=0.9,
+                      moco_shuffle_bn=2)
+    task = make_task(cfg, torch.Generator().manual_seed(0))
+    assert type(task.model).__name__ == cls
+    assert task.n_views == n_views
+    trainable = list(task.parameters())
+    assert trainable and all(p.requires_grad for p in trainable)
+    if model.startswith("moco"):
+        assert task.model.naked == (n_views == 2)
+        assert task.model.queue.shape == (16, 128)
+        assert (task.model.m, task.model.shuffle_bn_groups) == (0.9, 2)
+        # the optimizer sees the query encoder only
+        assert {id(p) for p in trainable} == {
+            id(p) for p in task.model.encoder_q.parameters()}
+        assert len(list(task.model.parameters())) == 2 * len(trainable)
+    if model.endswith("timeseriesv4"):
+        assert task.model.dtw_gamma == 0.3  # reaches the model from the config
+
+
+def _smoke_moco_cfg(tmp_path, **model_kw) -> PretrainConfig:
+    """Preset ``smoke_moco`` on the backbone that is ported."""
+    cfg = PRETRAIN_PRESETS["smoke_moco"]
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, net="r21d", **model_kw),
+        data=dataclasses.replace(cfg.data, img_dim=S, scale_hw=(40, 36)),
+        run=dataclasses.replace(cfg.run, log_root=str(tmp_path)))
+
+
+@pytest.mark.parametrize("mode", ["clip-sr-tc", "clip-sr-dtw"])
+def test_train_runs_smoke_moco_on_cpu(tmp_path, mode):
+    cfg = _smoke_moco_cfg(tmp_path, mode=mode)
+    metrics = train(cfg, max_steps=2, device="cpu")
+    assert set(metrics) >= {"clip_loss", "tc_loss", "aug_ranking_margin_loss",
+                            "unaug_ranking_margin_loss", "total_loss",
+                            "clip_top1", "clip_top5", "tc_top1"}
+    assert all(np.isfinite(v) for v in metrics.values())
+    ckpt = torch.load(os.path.join(
+        tmp_path, cfg.run.prefix, "pretrain", cfg.run.name_prefix, "model",
+        "epoch0.pth.tar"))
+    state = ckpt["state_dict"]
+    B, K = cfg.optim.batch_size, cfg.model.moco_k
+    # the checkpoint carries the key encoder, both queues and the pointer
+    task = make_task(cfg.model)
+    task.model.load_state_dict(state)  # strict
+    assert int(state["queue_ptr"]) == 2 * B
+    assert state["queue"].shape == (K, 128)
+    assert state["series_queue"].shape == (K, 128)
+    written = state["series_queue"][:2 * B].reshape(2 * B, 2, 64)
+    np.testing.assert_allclose(written.norm(dim=-1).numpy(), 1.0, atol=1e-5)
+    key = "backbone.conv1.spatial_conv.weight"
+    assert not torch.equal(state["encoder_q." + key],
+                           state["encoder_k." + key])
+    # the optimizer holds momentum for the query encoder only
+    n_q = len(list(task.model.encoder_q.parameters()))
+    assert len(ckpt["optimizer"]["state"]) == n_q
+    assert float(state["encoder_k.backbone.bn1.running_mean"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("model", ["simclr_naked", "moco_naked"])
+def test_train_runs_the_naked_models_on_two_views(tmp_path, model):
+    cfg = _smoke_moco_cfg(tmp_path, model=model)
+    metrics = train(cfg, max_steps=2, device="cpu")
+    assert set(metrics) == {"clip_loss", "clip_top1", "clip_top5",
+                            "total_loss"}
+    assert all(np.isfinite(v) for v in metrics.values())
+
+
+def test_train_runs_simclr_in_mode_clip_sr_dtw_on_cpu(tmp_path):
+    metrics = train(_smoke_cfg(tmp_path, mode="clip-sr-dtw", dtw_gamma=0.1),
+                    max_steps=2, device="cpu")
+    assert np.isfinite(metrics["tc_loss"])
+    assert np.isfinite(metrics["total_loss"])
 
 
 def test_host_loader_yields_the_jax_loaders_batch():

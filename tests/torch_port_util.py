@@ -31,3 +31,29 @@ def numpy_variables(model, example, seed, **init_kwargs):
         flat[path] = val.astype(np.float32)
     tree = unflatten_dict(flat)
     return tree["params"], tree.get("batch_stats", {})
+
+
+def moco_numpy_state(encoder, example, K, seed, ptr=4):
+    """A whole JAX MoCo ``TaskState`` as numpy: query and key variable trees
+    of the flax ``encoder`` drawn from different seeds (so the momentum
+    update moves the key encoder), both queues unit-norm per segment, and a
+    pointer that is not 0. Returns (params, batch_stats, moco) with ``moco``
+    a dict of the ``MoCoState`` fields; ``series_queue`` is None for an
+    encoder without a series head."""
+    params, stats = numpy_variables(encoder, example, seed=seed, train=True)
+    params_k, stats_k = numpy_variables(encoder, example, seed=seed + 1,
+                                        train=True)
+    rng = np.random.default_rng(seed + 2)
+
+    def unit(shape):
+        x = rng.normal(size=shape).astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    series_queue = None
+    if encoder.with_series:
+        series_queue = unit((K, encoder.n_series, encoder.series_dim)).reshape(
+            K, encoder.n_series * encoder.series_dim)
+    moco = {"params_k": params_k, "batch_stats_k": stats_k,
+            "queue": unit((K, encoder.dim)), "series_queue": series_queue,
+            "ptr": np.asarray(ptr, np.int32)}
+    return params, stats, moco
