@@ -7,14 +7,17 @@ return post-ReLU 5-D feature maps.
 
 from __future__ import annotations
 
+from .r3d import R3DNet
 from .r21d import R2Plus1DNet
 
-__all__ = ["select_backbone", "R2Plus1DNet"]
+__all__ = ["select_backbone", "R3DNet", "R2Plus1DNet"]
 
 
 def select_backbone(network: str):
     if network == "r21d":
         return R2Plus1DNet(), {"feature_size": 512}
+    if network == "r3d":
+        return R3DNet(), {"feature_size": 512}
     raise NotImplementedError(
-        f"backbone {network!r} is not ported yet; only 'r21d' is (the "
-        "remaining backbones are queued in ROADMAP.md)")
+        f"backbone {network!r} is not ported yet; only 'r21d' and 'r3d' are "
+        "(the remaining backbones are queued in ROADMAP.md)")

@@ -2,14 +2,18 @@
 """Where the PyTorch port's pretrain step spends its time on the GPU.
 
 Runs the train step of a ``dualvar_tpu_torch`` preset (``paper_table1_k400``
-unless ``--preset`` names another; full width and depth, synthetic frames,
-one device-resident batch) under ``torch.profiler`` for a few steps and
-prints the device time by kernel, the device's busy share of the wall time,
-and the step time without the profiler.
+unless ``--preset`` names another; ``--net``, ``--model`` and ``--mode``
+override it; full width and depth, synthetic frames, one device-resident
+batch) under ``torch.profiler`` for a few steps and prints the device time by
+kernel, the device's busy share of the wall time, and the step time without
+the profiler. ``DUALVAR_BN_STATS=pallas`` in the environment sends the batch
+norm's sums through the channel-sum kernel, as in training.
 
     python3 scripts/port_profile_step.py --batch_size 32 [--channels_last 1]
     python3 scripts/port_profile_step.py --preset paper_table2_moco_r21d \\
         --mode clip-sr-dtw --batch_size 32
+    DUALVAR_BN_STATS=pallas python3 scripts/port_profile_step.py \\
+        --net r3d --model simclr_naked --batch_size 32
 
 Needs one CUDA device. Prints the card's name and power limit first; every
 number is that card's.
@@ -41,6 +45,8 @@ def main() -> int:
     p.add_argument("--mode", default=None,
                    choices=[None, "clip-sr-tc", "clip-sr", "clip-sr-dtw"],
                    help="the preset's mode unless given")
+    p.add_argument("--net", default=None, help="the preset's unless given")
+    p.add_argument("--model", default=None, help="the preset's unless given")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--channels_last", type=int, default=0, choices=[0, 1],
@@ -58,9 +64,13 @@ def main() -> int:
 
     cfg = PRETRAIN_PRESETS[args.preset]
     cfg = cfg.replace(
-        data=dataclasses.replace(cfg.data, synthetic=True),
+        data=dataclasses.replace(
+            cfg.data, synthetic=True,
+            synthetic_videos=max(cfg.data.synthetic_videos, args.batch_size)),
         model=dataclasses.replace(cfg.model,
-                                  mode=args.mode or cfg.model.mode),
+                                  mode=args.mode or cfg.model.mode,
+                                  net=args.net or cfg.model.net,
+                                  model=args.model or cfg.model.model),
         optim=dataclasses.replace(cfg.optim, batch_size=args.batch_size))
     setup = setup_training(cfg, "cuda")
     if args.channels_last:
@@ -94,7 +104,9 @@ def main() -> int:
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     print(json.dumps({
-        "preset": args.preset, "mode": cfg.model.mode,
+        "preset": args.preset, "net": cfg.model.net,
+        "model": cfg.model.model, "mode": cfg.model.mode,
+        "bn_stats": os.environ.get("DUALVAR_BN_STATS", "aten"),
         "batch_size": args.batch_size, "channels_last": args.channels_last,
         "steps": args.steps, "ms_per_step_unprofiled": plain_ms,
         "ms_per_step_profiled": wall_ms / args.steps,

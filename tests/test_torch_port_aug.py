@@ -24,6 +24,8 @@ from dualvar_tpu_torch.aug.pipeline import (AugConfig, _draw_clip_params,
                                             pretrain_batch_fused)
 from dualvar_tpu_torch.ops.aug_fused import aug_fused, aug_fused_plain
 
+import torch_port_util  # noqa: F401  (caps torch's threads)
+
 T, H0, W0, SIZE = 4, 40, 36, 32  # sizes of tests/test_aug_fused.py
 
 # Float32 elementwise chains that differ only in rounding order (x*(1/255)

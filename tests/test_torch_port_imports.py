@@ -38,14 +38,16 @@ print("\\n".join(names))
     out = _run(code)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 22  # the slices' modules were all seen
+    assert len(names) >= 25  # the slices' modules were all seen
     assert {"dualvar_tpu_torch.ops.aug_fused", "dualvar_tpu_torch.ops.soft_dtw",
+            "dualvar_tpu_torch.ops.bn_stats", "dualvar_tpu_torch.ops.conv_fused",
+            "dualvar_tpu_torch.models.backbones.r3d",
             "dualvar_tpu_torch.models.ssl.moco",
             "dualvar_tpu_torch.train.pretrain"} <= set(names)
     # the kernels' sources are data beside the package, not modules of it
     assert not any("csrc" in name for name in names)
     assert sorted(os.listdir(os.path.join(ROOT, "dualvar_tpu_torch", "csrc"))) \
-        == ["aug_fused.cu", "soft_dtw.cu"]
+        == ["aug_fused.cu", "bn_stats.cu", "conv_fused.cu", "soft_dtw.cu"]
 
 
 def _imported_roots(path):

@@ -19,6 +19,8 @@ from dualvar_tpu.models.ssl import simclr as JS
 from dualvar_tpu_torch.models.ssl import losses as TL
 from dualvar_tpu_torch.models.ssl import simclr as TS
 
+import torch_port_util  # noqa: F401  (caps torch's threads)
+
 G = os.path.join(os.path.dirname(__file__), "goldens")
 
 # float32 on both sides; the logits are similarities of unit vectors over a

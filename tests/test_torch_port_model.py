@@ -55,7 +55,7 @@ def test_backbone_parameter_count():
     assert meta == {"feature_size": 512}
 
 
-@pytest.mark.parametrize("name", ["r3d", "s3dg", "r21d_tiled", "c3d"])
+@pytest.mark.parametrize("name", ["s3dg", "r21d_tiled", "c3d", "r2d3d18"])
 def test_unported_backbones_raise_naming_the_roadmap(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         select_backbone(name)

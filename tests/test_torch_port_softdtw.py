@@ -17,6 +17,8 @@ import torch
 from dualvar_tpu.ops import soft_dtw as JD
 from dualvar_tpu_torch.ops import soft_dtw as TD
 
+import torch_port_util  # noqa: F401  (caps torch's threads)
+
 # float32 on both sides, the same recurrence in the same order: a few ulp of
 # values up to ~25 (16x16)
 RTOL, ATOL = 1e-5, 1e-6

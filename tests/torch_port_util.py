@@ -4,7 +4,17 @@ weights without compiling a JAX initialiser."""
 
 import jax
 import numpy as np
+import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
+
+# Every tests/test_torch_port_*.py file imports this module, so this caps
+# torch's intra-op threads in each test process. The suite runs in six
+# worker processes beside XLA's own thread pools; torch's default of one
+# thread a core oversubscribes the machine several times over. Not 1: one
+# thread sums float32 in an order that moves one float32-vs-float64
+# gradient comparison out of its band (ROADMAP.md, C).
+TORCH_THREADS = 2
+torch.set_num_threads(TORCH_THREADS)
 
 
 def numpy_variables(model, example, seed, **init_kwargs):
