@@ -14,8 +14,10 @@ Phases, each fatal on failure (non-zero exit):
    the shapes the paths give it, then timed beside its roofline bound:
    ``aug_fused``, the soft-DTW forward and backward kernels, the channel
    sums of the batch norm (``channel_sums``; also against float64 sums) and
-   the 3x3x3 conv with BN statistics (``conv3d_bn_stats``; its sums also
-   against float64 sums of its own output, at three grid sizes);
+   the 3x3x3 conv with BN statistics (``conv3d_bn_stats``, both routes: the
+   bfloat16 tensor-core kernel and the float32 CUDA-core kernel; its sums
+   also against float64 sums of its own output, at three grid sizes); the
+   number of ``HGMMA`` / ``UTMALDG`` instructions in the conv library's SASS;
 4. paths, each through ``train()`` at full width, depth and clip size on
    synthetic frames at batch 8, with every kernel's launch count set to 0
    just before and read just after:
@@ -220,14 +222,20 @@ def check_aug_kernel(torch, device) -> dict:
     for n in (24, 96):
         clips, orders, factors, blur = aug_inputs(torch, n, 16, 112, 2, device)
         bound, bound_by = aug_bound_ms(torch, clips, blur, torch.float32)
-        ms = time_cuda(torch, lambda: mod._launch(
+        # the kernel's device time (10 launches replayed from a CUDA graph:
+        # an eager launch costs the host about as long as the kernel runs),
+        # one eager launch, and one eager call of the wrapper (which also
+        # checks the orders on the host)
+        ms = time_cuda_graph(torch, lambda: mod._launch(
+            clips, orders, factors, blur, torch.float32, True), 10)
+        eager_ms = time_cuda(torch, lambda: mod._launch(
             clips, orders, factors, blur, torch.float32, True), 30)
         wrapper_ms = time_cuda(torch, lambda: mod.aug_fused(
             clips, orders, factors, blur), 30)
         plain_ms = time_cuda(torch, lambda: mod.aug_fused_plain(
             clips, orders, factors, blur), 5, warmup=1)
-        row = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-               "bound_ms": bound, "bound_by": bound_by}
+        row = {"ms": ms, "eager_ms": eager_ms, "wrapper_ms": wrapper_ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
         print(f"kernels: aug_fused timing N={n} T=16 S=112 f32: "
               + json.dumps(row), flush=True)
         if n == 24:
@@ -237,8 +245,8 @@ def check_aug_kernel(torch, device) -> dict:
             for name, on in (("all", 1.0), ("none", 0.0)):
                 b = blur.clone()
                 b[:, 1] = on
-                ms_b = time_cuda(torch, lambda: mod._launch(
-                    clips, orders, factors, b, torch.float32, True), 30)
+                ms_b = time_cuda_graph(torch, lambda: mod._launch(
+                    clips, orders, factors, b, torch.float32, True), 10)
                 print(f"kernels: aug_fused timing N=24, {name} of the clips "
                       f"blurred: {ms_b:.4f} ms", flush=True)
     return {
@@ -496,36 +504,69 @@ def check_channel_sums_kernel(torch, device) -> dict:
 
 def conv_bound_ms(N, T, H, W, C, Co, elem_bytes) -> tuple[float, str]:
     """The least time for one 3x3x3 conv with statistics: 2*27*C*Co
-    operations an output position at the bf16 tensor-core rate, against x,
-    w and y moved once."""
+    operations an output position, at the bf16 tensor-core rate for bf16
+    inputs and the float32 rate of the CUDA cores for float32 ones, against
+    x, w and y moved once."""
     flops = 2 * N * T * H * W * 27 * C * Co
     bytes_moved = (N * T * H * W * (C + Co) + 27 * C * Co) * elem_bytes
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    rate = BF16_FLOPS_PER_S if elem_bytes == 2 else F32_FLOPS_PER_S
+    t_ops = flops / rate * 1e3
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_conv_kernel(torch, device) -> dict:
-    """conv3d_bn_stats at path R's layer-1 shape for N = 1, 2, 16 (three grid
-    sizes) and at a ragged shape: y against a float32 convolution of the
-    same inputs (TF32 off), s1 and s2 against float64 sums of the kernel's
-    own y and against the plain version's; then its time at N=16 (B=8) and
-    N=64 (B=32) beside cuDNN's convolution without the sums."""
+def sass_counts(lib_path: str) -> dict:
+    """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions the
+    library's SASS holds, from ``cuobjdump -sass``; None where the toolkit
+    has no cuobjdump."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return {"HGMMA": None, "UTMALDG": None}
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {lib_path}: {out.stderr.strip()}")
+    return {op: sum(op in line for line in out.stdout.splitlines())
+            for op in ("HGMMA", "UTMALDG")}
+
+
+def check_conv_kernel(torch, device) -> tuple[dict, dict]:
+    """conv3d_bn_stats on both routes: bfloat16 (tensor cores) at path R's
+    layer-1 shape for N = 1, 2, 16 (three grid sizes), at a ragged shape and
+    at one with W > 64, C > 64 and Co not a multiple of 64; float32 (CUDA
+    cores) at N = 2. y against a float32 convolution of the same inputs
+    (TF32 off), s1 and s2 against float64 sums of the kernel's own y and
+    against the plain version's; each call must go through its route's
+    kernel. Then the times at N=16 (B=8) and N=64 (B=32) beside cuDNN's
+    convolution without the sums, and the float32 route's at N=16."""
     from dualvar_tpu_torch.ops import conv_fused as mod
+    from dualvar_tpu_torch.ops.build import library_path
+
+    sass = sass_counts(library_path("conv_fused"))
+    print(f"kernels: conv_fused SASS: {json.dumps(sass)}", flush=True)
+    if sass["HGMMA"] == 0 or sass["UTMALDG"] == 0:
+        fail(f"conv_fused: no wgmma or no TMA load in the SASS: {sass}")
 
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=device).manual_seed(6)
-    worst_y = worst_s = worst_abs = 0.0
+    worst = {torch.bfloat16: [0.0, 0.0, 0.0], torch.float32: [0.0, 0.0, 0.0]}
     for (N, T, H, W, C, Co), dtype in (
             ((1, 16, 56, 56, 64, 64), torch.bfloat16),
             ((2, 16, 56, 56, 64, 64), torch.bfloat16),
             ((16, 16, 56, 56, 64, 64), torch.bfloat16),
             ((2, 5, 9, 13, 24, 40), torch.bfloat16),
+            ((1, 4, 12, 70, 128, 96), torch.bfloat16),
             ((2, 16, 56, 56, 64, 64), torch.float32)):
         x = torch.randn((N, T, H, W, C), device=device, generator=gen).to(dtype)
         w = torch.randn((3, 3, 3, C, Co), device=device,
                         generator=gen) / math.sqrt(27 * C)
+        route = (mod.tensor_core_forward if dtype == torch.bfloat16
+                 else mod.cuda_core_forward)
+        before = route.launches
         y, s1, s2 = mod.conv3d_bn_stats_forward(x, w)
+        if route.launches != before + 1:
+            fail(f"conv3d_bn_stats {dtype} did not go through its kernel")
         # float32 convolution of the same (rounded) inputs
         ref_y, _, _ = mod.conv3d_bn_stats_plain(x.float(), w.to(dtype).float())
         p_y, p1, p2 = mod.conv3d_bn_stats_plain(x, w)
@@ -557,47 +598,72 @@ def check_conv_kernel(torch, device) -> dict:
         if not (err_y <= 1.0 and err_s <= CONV_SUMS_RTOL and err_p <= tol):
             fail(f"conv3d_bn_stats disagrees at x={(N, T, H, W, C)} Co={Co} "
                  f"{dtype}")
-        worst_y, worst_s = max(worst_y, err_y), max(worst_s, err_s)
-        worst_abs = max(worst_abs, float((y.float() - ref_y).abs().max()))
+        acc = worst[dtype]
+        acc[0] = max(acc[0], err_y)
+        acc[1] = max(acc[1], err_s)
+        acc[2] = max(acc[2], float((y.float() - ref_y).abs().max()))
         del x, y, y64, ref_y, p_y
-    torch.backends.cudnn.allow_tf32 = True
+    # what neither kernel takes is refused, not run another way
+    for shape_x, shape_w, dtype, exc in (
+            ((1, 2, 4, 4, 12), (3, 3, 3, 12, 16), torch.bfloat16, ValueError),
+            ((1, 2, 4, 4, 16), (3, 3, 3, 16, 16), torch.float16, TypeError)):
+        try:
+            mod.conv3d_bn_stats_forward(
+                torch.zeros(shape_x, device=device, dtype=dtype),
+                torch.zeros(shape_w, device=device))
+        except exc:
+            continue
+        fail(f"conv3d_bn_stats accepted x {shape_x} {dtype}")
 
-    entry = {}
-    for N in (16, 64):
-        x = torch.randn((N, 16, 56, 56, 64), device=device,
-                        generator=gen).to(torch.bfloat16)
-        w = torch.randn((3, 3, 3, 64, 64), device=device,
-                        generator=gen) / math.sqrt(27 * 64)
-        x_ncdhw = x.permute(0, 4, 1, 2, 3)  # channels_last_3d, no copy
-        w_ncdhw = w.permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last_3d)
-        bound, bound_by = conv_bound_ms(N, 16, 56, 56, 64, 64, 2)
-        row = {
-            "shape": [N, 16, 56, 56, 64],
-            "ms": time_cuda(torch, lambda: mod.conv3d_bn_stats_forward(x, w),
-                            5, warmup=1),
-            "plain_ms": time_cuda(
-                torch, lambda: mod.conv3d_bn_stats_plain(x, w), 5, warmup=1),
-            # cuDNN's convolution of the same bf16 input, without the sums
-            "library_ms": time_cuda(
-                torch, lambda: torch.nn.functional.conv3d(
-                    x_ncdhw, w_ncdhw, padding=1), 5, warmup=1),
-            "bound_ms": bound, "bound_by": bound_by}
-        print("kernels: conv3d_bn_stats timing " + json.dumps(row),
-              flush=True)
-        if N == 16:
-            entry = row
-        del x, x_ncdhw
+    entries = {}
+    for dtype, sizes in ((torch.bfloat16, (16, 64)), (torch.float32, (16,))):
+        for N in sizes:
+            x = torch.randn((N, 16, 56, 56, 64), device=device,
+                            generator=gen).to(dtype)
+            w = torch.randn((3, 3, 3, 64, 64), device=device,
+                            generator=gen) / math.sqrt(27 * 64)
+            x_ncdhw = x.permute(0, 4, 1, 2, 3)  # channels_last_3d, no copy
+            w_ncdhw = w.permute(4, 3, 0, 1, 2).to(dtype).contiguous(
+                memory_format=torch.channels_last_3d)
+            bound, bound_by = conv_bound_ms(N, 16, 56, 56, 64, 64,
+                                            x.element_size())
+            reps = 3 if dtype == torch.bfloat16 else 1
+            row = {
+                "shape": [N, 16, 56, 56, 64], "dtype": str(dtype),
+                # the wrapper's device time (weight packing included), from
+                # CUDA-graph replays; cuDNN with TF32 off for float32
+                "ms": time_cuda_graph(
+                    torch, lambda: mod.conv3d_bn_stats_forward(x, w), reps,
+                    iters=5),
+                "plain_ms": time_cuda(
+                    torch, lambda: mod.conv3d_bn_stats_plain(x, w), 5,
+                    warmup=1),
+                # cuDNN's convolution of the same input, without the sums
+                "library_ms": time_cuda(
+                    torch, lambda: torch.nn.functional.conv3d(
+                        x_ncdhw, w_ncdhw, padding=1), 5, warmup=1),
+                "bound_ms": bound, "bound_by": bound_by}
+            print("kernels: conv3d_bn_stats timing " + json.dumps(row),
+                  flush=True)
+            entries.setdefault(dtype, row)
+            del x, x_ncdhw
+    torch.backends.cudnn.allow_tf32 = True
     torch.cuda.empty_cache()
-    return {"name": "conv3d_bn_stats", "route": "cuda",
-            "source": "dualvar_tpu_torch/csrc/conv_fused.cu",
-            "replaces": "dualvar_tpu/ops/conv_fused.py:64", "launches": 0,
-            # y against a float32 convolution of the same inputs; the share
-            # of its tolerance (half a bf16 ulp of |y| + 1e-4) it used
-            "max_abs_err": worst_abs, "y_err_over_tol": worst_y,
-            "sums_rel_err": worst_s,
-            "library": "torch.nn.functional.conv3d (cuDNN), without the sums",
-            **entry}
+    common = {"route": "cuda", "source": "dualvar_tpu_torch/csrc/conv_fused.cu",
+              "replaces": "dualvar_tpu/ops/conv_fused.py:64", "launches": 0,
+              "library": "torch.nn.functional.conv3d (cuDNN), without the sums"}
+    out = []
+    for name, dtype in (("conv3d_bn_stats_bf16", torch.bfloat16),
+                        ("conv3d_bn_stats_f32", torch.float32)):
+        err_y, err_s, err_abs = worst[dtype]
+        out.append({"name": name, **common,
+                    # y against a float32 convolution of the same inputs; the
+                    # share of its tolerance (half a bf16 ulp of |y| + 1e-4,
+                    # or 1e-4 in float32) it used
+                    "max_abs_err": err_abs, "y_err_over_tol": err_y,
+                    "sums_rel_err": err_s, **entries[dtype]})
+    out[0]["sass"] = sass
+    return tuple(out)
 
 
 def smoke_cfg(preset: str, batch_size: int, log_root: str,
@@ -643,13 +709,15 @@ def kernel_counters() -> dict:
     """name in the ``kernels`` line -> the wrapper that carries its count."""
     from dualvar_tpu_torch.ops.aug_fused import aug_fused
     from dualvar_tpu_torch.ops.bn_stats import channel_sums
-    from dualvar_tpu_torch.ops.conv_fused import conv3d_bn_stats_forward
+    from dualvar_tpu_torch.ops.conv_fused import (cuda_core_forward,
+                                                  tensor_core_forward)
     from dualvar_tpu_torch.ops.soft_dtw import (soft_dtw_backward,
                                                 soft_dtw_forward)
 
     return {"aug_fused": aug_fused, "soft_dtw_fwd": soft_dtw_forward,
             "soft_dtw_bwd": soft_dtw_backward, "channel_sums": channel_sums,
-            "conv3d_bn_stats": conv3d_bn_stats_forward}
+            "conv3d_bn_stats_bf16": tensor_core_forward,
+            "conv3d_bn_stats_f32": cuda_core_forward}
 
 
 def expected_launches(**counts) -> dict:
@@ -817,7 +885,8 @@ def check_conv_on_path_r(torch, cfg, state: dict) -> dict:
     that input and that layer's weight, must give the layer's output (cuDNN
     in bf16: within one bf16 ulp), and through s1/n and s2/n - mu^2 the batch
     mean and variance ``bn2`` folded into its running statistics."""
-    from dualvar_tpu_torch.ops.conv_fused import conv3d_bn_stats_forward
+    from dualvar_tpu_torch.ops.conv_fused import (conv3d_bn_stats_forward,
+                                                  tensor_core_forward)
     from dualvar_tpu_torch.train.pretrain import setup_training
 
     with bn_stats_env(True):
@@ -845,11 +914,14 @@ def check_conv_on_path_r(torch, cfg, state: dict) -> dict:
     var_used = rv0 + (bn.running_var - rv0) / m
     x, y_layer = seen["x"], seen["y"].permute(0, 2, 3, 4, 1)
     w = seen["w"].permute(2, 3, 4, 1, 0).contiguous()
+    before = tensor_core_forward.launches
     y, s1, s2 = conv3d_bn_stats_forward(
         x.permute(0, 2, 3, 4, 1).contiguous(), w)
     torch.cuda.synchronize()
     if x.dtype != torch.bfloat16 or tuple(x.shape) != (16, 64, 16, 56, 56):
         fail(f"path R layer 1: conv2 input is {x.dtype} {tuple(x.shape)}")
+    if tensor_core_forward.launches != before + 1:
+        fail("path R layer 1: the conv did not take the tensor-core kernel")
     yl = y_layer.float()
     err_y = float(((y.float() - yl).abs()
                    / (CONV_ULP * yl.abs() + CONV_ATOL)).max())
@@ -1032,10 +1104,16 @@ def main() -> int:
     os.environ.pop("DUALVAR_BN_STATS", None)
     tic = time.perf_counter()
     names = ("aug_fused", "soft_dtw", "bn_stats", "conv_fused")
+
+    def build(name):
+        start = time.perf_counter()
+        load_library(name)
+        return time.perf_counter() - start
+
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source
-        list(pool.map(load_library, names))
-    print(f"build: {', '.join(names)} in {time.perf_counter() - tic:.1f} s",
-          flush=True)
+        took = dict(zip(names, pool.map(build, names)))
+    print(f"build: {', '.join(names)} in {time.perf_counter() - tic:.1f} s "
+          "side by side; each: " + json.dumps(took), flush=True)
     for name in names:
         with open(os.path.join(BUILD_DIR, f"{name}.ptxas.log")) as fh:
             print(f"build: ptxas {name}: " + " | ".join(
@@ -1046,7 +1124,7 @@ def main() -> int:
     kernels = [check_aug_kernel(torch, device),
                *check_soft_dtw_kernels(torch, device),
                check_channel_sums_kernel(torch, device),
-               check_conv_kernel(torch, device)]
+               *check_conv_kernel(torch, device)]
 
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
@@ -1070,7 +1148,8 @@ def main() -> int:
             kernel["launches_by_path"] = {
                 path: counts[kernel["name"]]
                 for path, counts in by_path.items()}
-        kernels[-1]["path_r_layer1"] = check_conv_on_path_r(
+        conv = next(k for k in kernels if k["name"] == "conv3d_bn_stats_bf16")
+        conv["path_r_layer1"] = check_conv_on_path_r(
             torch, path_r_cfg(8, log_root), r_state)
         for batch_size in (8, 32):
             time_train_steps(torch, smoke_cfg(

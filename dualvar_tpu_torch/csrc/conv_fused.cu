@@ -8,24 +8,58 @@
 //                  w[dt,dh,dw,c,o]   (zero outside x), rounded to x's dtype
 //   s1[o] = sum of y[...,o],  s2[o] = sum of y[...,o]^2   (float32)
 //
-// with x (N, T, H, W, C) and y (N, T, H, W, Co) channels-last, w (3, 3, 3, C,
-// Co) used in x's dtype, float32 accumulation, and the sums taken from y
-// AFTER it is rounded to the output dtype, as the TPU kernel does.
+// with x (N, T, H, W, C) and y (N, T, H, W, Co) channels-last, w used in x's
+// dtype, float32 accumulation, and the sums taken from y AFTER it is rounded
+// to the output dtype, as the TPU kernel does.
 //
 // Bound: operations (2*27*C*Co per output position; at the R3D layer-1 shape
 // (16, 16, 56, 56, 64) that is 1.78e11 against 206 MB of x and y).
 //
-// Design: simple and right first; it runs on the CUDA cores in float32, far
-// from the tensor-core bound (wgmma and TMA are later work).
+// Two routes, chosen by the wrapper (ops/conv_fused.py) from x's dtype:
+//
+// bfloat16 x: an implicit GEMM on the tensor cores (conv3d_bn_stats_tc_*).
+//   M = output channels (a block's 64), N = output positions, K = 27 * C.
+//   The GEMM is computed transposed (D[co][position] = W . X^T) so that one
+//   wgmma m64n256k16 covers 4 output rows x 64 w of a warpgroup: each
+//   instruction reads 2 KB of weights and 8 KB of x from shared memory for
+//   0.5 MFLOP, where the m64n64 shape of the untransposed product would read
+//   as much shared memory as the tensor cores can consume.
+//   - a block owns 8 output rows (h) x 64 w of one (n, t) and 64 output
+//     channels; warpgroups 0 and 1 each hold a 64 x 256 float32 accumulator
+//     (128 registers a thread), warpgroup 2 is the producer;
+//   - a K-step is one (64-channel chunk, dt, dw): ONE tiled TMA load of x
+//     fetches the band and its halo, 10 h rows x 64 w x 64 channels with the
+//     128-byte swizzle, at (c0, w0 + dw - 1, h0 - 1, t + dt - 1, n); TMA
+//     fills coordinates outside x with zeros, so SAME padding needs no
+//     padded copy. The three dh taps are offsets of whole h rows (8 KB) into
+//     that box, which keeps the swizzle atoms aligned: 9 loads feed 27 taps.
+//     Taps of frames outside the clip are skipped. A second TMA load brings
+//     the weights of the three (dt, dh, dw) taps from the wrapper's packed
+//     bf16 (27, Co_pad, C_pad) weight, taps ordered (dt, dw, dh);
+//   - a ring of 2 stages of 104 KB with full / empty mbarriers; a consumer
+//     waits for its 12 wgmma of a stage before it frees the stage, while the
+//     other consumer's keep the tensor cores busy;
+//   - epilogue: the accumulators are rounded to bf16 into a shared-memory
+//     tile, y is stored with 16-byte stores (positions w >= W, h >= H and
+//     channels >= Co masked), and the block's per-channel sums of the
+//     ROUNDED values go to its own partial slot in a fixed order.
+//   What bounds it: the box and weights come from L2 once a (chunk, dt, dw)
+//   (104 KB for 8 x 64 x 64 x 27 x 64 x 2 operations), which at the card's
+//   L2 rate is close to the tensor cores' time; x itself is read from device
+//   memory about once.
+//
+// float32 x: the CUDA-core kernel (conv3d_bn_stats_launch). TF32 would break
+//   the float32 tolerance, so it runs float32 FMAs:
 //   - a block owns one (n, t), HT output rows of h, all of w and a tile of
 //     up to 64 output channels; a thread owns 4 neighbouring w and 8
 //     neighbouring output channels of one row, 32 float32 accumulators;
 //   - the input channels go in chunks of 8: the block stages the chunk's
 //     3 x (HT+2) x (W+2) halo of x and its 27 x 8 x 64 weights in shared
-//     memory as float32 (zeros outside x), then every thread does 27 x 8
-//     steps of 4 + 2 x 16-byte shared loads and 32 fused multiply-adds;
-//   - epilogue: y is rounded, stored 8 channels at a time, and the thread's
-//     partial sum(y) and sum(y^2) are taken from the ROUNDED values.
+//     memory (zeros outside x), then every thread does 27 x 8 steps of 4 +
+//     2 x 16-byte shared loads and 32 fused multiply-adds;
+//   - epilogue: y stored 8 channels at a time, the thread's partial sum(y)
+//     and sum(y^2) kept in registers.
+//
 // The statistics are where the TPU kernel went wrong (revisited-output
 // accumulation across its 2-D grid). Here nothing is accumulated across
 // blocks: each block writes its per-channel partials to its own slot, and a
@@ -35,6 +69,7 @@
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // does not synchronise and allocates nothing.
 
+#include <cuda.h>  // CUtensorMap and its enums only; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,34 +86,21 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// 8 consecutive values of T stored from one (bf16) or two (float) 16-byte
-// stores; p is 16-byte aligned
-template <typename T>
-__device__ __forceinline__ void store8(T* p, const T* v) {
-  static_assert(sizeof(T) * kTC % 16 == 0, "");
-#pragma unroll
-  for (int k = 0; k < (int)(sizeof(T) * kTC / 16); ++k)
-    reinterpret_cast<uint4*>(p)[k] = reinterpret_cast<const uint4*>(v)[k];
+// 8 consecutive floats stored with two 16-byte stores; p is 16-byte aligned
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = reinterpret_cast<const float4*>(v)[0];
+  reinterpret_cast<float4*>(p)[1] = reinterpret_cast<const float4*>(v)[1];
 }
 
 // grid (N * T * nht, Co / co_tile); dynamic shared memory: the weight chunk
 // (27, kCI, co_tile) then the x halo (3, HT + 2, kCI, Wp), both float32, Wp =
 // 4 * ceil(W / 4) + 2; reused for the per-thread sums at the end.
 // partial: (2, Co, gridDim.x) float32.
-template <typename T, typename TW>
+template <typename TW>
 __global__ void __launch_bounds__(kThreads)
-conv3d_bn_stats_kernel(const T* __restrict__ x, const TW* __restrict__ w,
-                       T* __restrict__ y, float* __restrict__ partial, int N,
-                       int Tn, int H, int W, int C, int Co, int HT,
+conv3d_bn_stats_kernel(const float* __restrict__ x, const TW* __restrict__ w,
+                       float* __restrict__ y, float* __restrict__ partial,
+                       int N, int Tn, int H, int W, int C, int Co, int HT,
                        int co_tile) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -127,10 +149,10 @@ conv3d_bn_stats_kernel(const T* __restrict__ x, const TW* __restrict__ w,
       float v = 0.0f;
       if (tt >= 0 && tt < Tn && hx >= 0 && hx < H && wx >= 0 && wx < W &&
           c < C)
-        v = to_f(x[((((int64_t)n * Tn + tt) * H + hx) * W + wx) * C + c]);
+        v = x[((((int64_t)n * Tn + tt) * H + hx) * W + wx) * C + c];
       x_s[((dt * (HT + 2) + hh) * kCI + ci) * Wp + ww] = v;
     }
-    // weights of the chunk, rounded to x's dtype as the convolution uses them
+    // weights of the chunk, in float32 as the convolution uses them
     for (int e = tid; e < w_elems; e += kThreads) {
       const int co = e % co_tile;
       const int rest = e / co_tile;
@@ -139,7 +161,7 @@ conv3d_bn_stats_kernel(const T* __restrict__ x, const TW* __restrict__ w,
       const int c = c0 + ci;
       float v = 0.0f;
       if (c < C)
-        v = to_f(from_f<T>(to_f(w[((int64_t)tap * C + c) * Co + co0 + co])));
+        v = to_f(w[((int64_t)tap * C + c) * Co + co0 + co]);
       w_s[e] = v;
     }
     __syncthreads();
@@ -168,7 +190,7 @@ conv3d_bn_stats_kernel(const T* __restrict__ x, const TW* __restrict__ w,
     }
   }
 
-  // epilogue: round, store, and sum the rounded values
+  // epilogue: store, and sum the stored values
   float s1[kTC], s2[kTC];
 #pragma unroll
   for (int j = 0; j < kTC; ++j) s1[j] = s2[j] = 0.0f;
@@ -177,13 +199,12 @@ conv3d_bn_stats_kernel(const T* __restrict__ x, const TW* __restrict__ w,
 #pragma unroll
     for (int k = 0; k < kTW; ++k) {
       if (w0 + k >= W) continue;
-      alignas(16) T out[kTC];
+      alignas(16) float out[kTC];
 #pragma unroll
       for (int j = 0; j < kTC; ++j) {
-        out[j] = from_f<T>(acc[k][j]);
-        const float r = to_f(out[j]);
-        s1[j] += r;
-        s2[j] = fmaf(r, r, s2[j]);
+        out[j] = acc[k][j];
+        s1[j] += out[j];
+        s2[j] = fmaf(out[j], out[j], s2[j]);
       }
       store8(y + ((((int64_t)n * Tn + t) * H + h) * W + w0 + k) * Co + co0 +
                  cg * kTC,
@@ -239,55 +260,468 @@ stats_finish_kernel(const float* __restrict__ partial, float* __restrict__ s1,
   if (threadIdx.x == 0) (k == 0 ? s1 : s2)[c] = v;
 }
 
-template <typename T, typename TW>
+template <typename TW>
 int launch_typed(const void* x, const void* w, void* y, float* partial,
                  float* s1, float* s2, int N, int Tn, int H, int W, int C,
                  int Co, int HT, int co_tile, size_t smem,
                  cudaStream_t stream) {
-  auto kernel = conv3d_bn_stats_kernel<T, TW>;
+  auto kernel = conv3d_bn_stats_kernel<TW>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nht = (H + HT - 1) / HT;
   const dim3 grid((unsigned)((int64_t)N * Tn * nht), Co / co_tile);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const TW*>(w), static_cast<T*>(y),
-      partial, N, Tn, H, W, C, Co, HT, co_tile);
+      static_cast<const float*>(x), static_cast<const TW*>(w),
+      static_cast<float*>(y), partial, N, Tn, H, W, C, Co, HT, co_tile);
   stats_finish_kernel<<<dim3(Co, 2), kThreads, 0, stream>>>(
       partial, s1, s2, Co, (int)grid.x);
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 route: the implicit GEMM on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcC = 64;     // input channels a K-step: 128 bytes, one swizzle row
+constexpr int kTcW = 64;     // output w positions of a band row
+constexpr int kTcCo = 64;    // output channels a block: the wgmma M
+constexpr int kTcRowsWG = 4; // output rows a consumer warpgroup: wgmma N = 256
+constexpr int kTcConsumers = 2;
+constexpr int kTcRows = kTcRowsWG * kTcConsumers;  // output rows a block: 8
+constexpr int kTcStages = 2;
+constexpr int kTcThreads = 128 * (kTcConsumers + 1);
+constexpr int kRowBytes = kTcW * kTcC * 2;            // one h row of a box
+constexpr int kXBytes = (kTcRows + 2) * kRowBytes;    // the box: band + halo
+constexpr int kWTapBytes = kTcCo * kTcC * 2;          // one tap's weights
+constexpr int kWBytes = 3 * kWTapBytes;               // the three dh taps
+constexpr int kStageBytes = kXBytes + kWBytes;
+constexpr int kTcSmem = kTcStages * kStageBytes + 1024;  // + 1024-B alignment
+// the epilogue's bf16 tile, (kTcRows * kTcW positions, kTcCo channels),
+// rows padded to 72 values so that a warp's stores spread over the banks
+constexpr int kTileStride = kTcCo + 8;
+static_assert(kTcRows * kTcW * kTileStride * 2 <= kStageBytes,
+              "the epilogue tile reuses stage 0");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// wait until the phase of parity ``parity`` of the barrier has completed. A
+// wait of more than about 4e9 cycles (seconds) can only be a fault (a load
+// that never lands): trap, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 32)) {
+      __trap();
+    }
+  }
+}
+
+// TMA tiled loads into shared memory, completing on ``bar``; coordinates
+// innermost first, negative or past the end -> zeros
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile written by TMA with the
+// 128-byte swizzle: rows of 128 bytes (64 bf16 of K), 8-row groups 1024
+// bytes apart. Advancing K by 16 values inside the row adds 32 bytes to the
+// start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  uint64_t d = (uint64_t)((saddr & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;             // leading byte offset (unused here)
+  d |= (uint64_t)(1024 >> 4) << 32;   // stride byte offset: 8 rows
+  d |= (uint64_t)1 << 62;             // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of an accumulator register
+// across the asynchronous wgmma that owns it
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// d (64 x 256, float32) += a (64 x 16) * b (256 x 16)^T, both bf16 K-major
+// in shared memory
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// One block: output channels co0..co0+63 of rows h0..h0+7, w0..w0+63 of one
+// (n, t). Warpgroups 0 and 1 consume (rows 4g..4g+3 each), warpgroup 2 is
+// the producer (one thread issues the TMA loads).
+//
+// K-steps, in the same order on both sides: for each 64-channel chunk c0,
+// each dt whose frame t + dt - 1 exists, each dw: ONE box of x, rows h0 - 1
+// .. h0 + 8 (10 h rows) x w0 + dw - 1 .. w0 + dw + 62 x 64 channels, and the
+// weights of the three taps (dt, dh, dw), dh = 0, 1, 2, which are adjacent
+// in the packed weight (taps ordered (dt, dw, dh)). Output row r with tap dh
+// reads box row r + dh: an offset of whole 8192-byte rows, so the 128-byte
+// swizzle atoms (1024 bytes) stay aligned and one descriptor per (dh, k16)
+// serves all 256 positions of the warpgroup's 4 rows.
+//
+// partial: (2, Co, gridDim.x) float32, this block's per-channel sums of the
+// rounded y over its valid positions.
+__global__ void __launch_bounds__(kTcThreads, 1)
+conv3d_bn_stats_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          __nv_bfloat16* __restrict__ y,
+                          float* __restrict__ partial, int Tn, int H, int W,
+                          int Co, int nchunk) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kTcStages];
+  __shared__ __align__(8) uint64_t empty_bar[kTcStages];
+  __shared__ float red[2][4][kTcCo];
+  // stages of (box, weights), 1024-byte aligned for the swizzle
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+
+  const int nwt = (W + kTcW - 1) / kTcW;
+  const int nhb = (H + kTcRows - 1) / kTcRows;
+  int blk = blockIdx.x;
+  const int wt = blk % nwt;
+  blk /= nwt;
+  const int hb = blk % nhb;
+  blk /= nhb;
+  const int t = blk % Tn;
+  const int n = blk / Tn;
+  const int h0 = hb * kTcRows, w0 = wt * kTcW, co0 = blockIdx.y * kTcCo;
+  // frames t + dt - 1 outside the clip contribute zeros: skip their taps
+  const int dt_lo = t == 0 ? 1 : 0;
+  const int dt_hi = t == Tn - 1 ? 1 : 2;
+  const int ndt = dt_hi - dt_lo + 1;
+  const int nsteps = nchunk * ndt * 3;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], kTcConsumers * 4);  // a warp of each consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kTcConsumers) {
+    // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid == kTcConsumers * 128) {
+      for (int s = 0; s < nsteps; ++s) {
+        const int stage = s % kTcStages;
+        mbar_wait(&empty_bar[stage], ((s / kTcStages) & 1) ^ 1);
+        const int dw = s % 3;
+        const int dt = dt_lo + (s / 3) % ndt;
+        const int c0 = (s / (3 * ndt)) * kTcC;
+        uint8_t* xs = smem + stage * kStageBytes;
+        mbar_expect_tx(&full_bar[stage], kStageBytes);
+        tma_load_5d(xs, &xmap, &full_bar[stage], c0, w0 + dw - 1, h0 - 1,
+                    t + dt - 1, n);
+        tma_load_3d(xs + kXBytes, &wmap, &full_bar[stage], c0, co0,
+                    (dt * 3 + dw) * 3);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns output rows h0 + 4 wg .. h0 + 4 wg + 3
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    for (int s = 0; s < nsteps; ++s) {
+      const int stage = s % kTcStages;
+      mbar_wait(&full_bar[stage], (s / kTcStages) & 1);
+      const uint32_t xs =
+          smem_u32(smem + stage * kStageBytes) + wg * kTcRowsWG * kRowBytes;
+      const uint32_t ws = smem_u32(smem + stage * kStageBytes + kXBytes);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+        for (int k = 0; k < kTcC / 16; ++k)
+          wgmma_m64n256k16(acc, sw128_desc(ws + dh * kWTapBytes + k * 32),
+                           sw128_desc(xs + dh * kRowBytes + k * 32));
+      wgmma_commit();
+      // this stage's products are done before the next K-step: its buffers
+      // may refill while the other consumer keeps the tensor cores busy.
+      // (Keeping one group in flight across iterations, wait_group 1, lost
+      // the last K-step's products: the compiler copied the accumulators
+      // before the asynchronous write landed.)
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 128; ++i) fence_operand(acc[i]);
+      if (tid % 32 == 0) mbar_arrive(&empty_bar[stage]);
+    }
+
+    // epilogue. Every load has landed and every product is done once both
+    // consumers are here, so stage 0 holds the rounded tile.
+    asm volatile("bar.sync 1, %0;" ::"n"(kTcConsumers * 128) : "memory");
+    __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
+    const int warp = (tid / 32) % 4, lane = tid % 32;
+    // accumulator i of this thread: channel 16 warp + lane / 4 + 8 (i / 2 %
+    // 2), position 8 (i / 4) + 2 (lane % 4) + i % 2 of the warpgroup's 256
+#pragma unroll
+    for (int i = 0; i < 128; ++i) {
+      const int co = 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+      const int p = wg * 256 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      tile[p * kTileStride + co] = __float2bfloat16_rn(acc[i]);
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(kTcConsumers * 128) : "memory");
+
+    // y: 16-byte stores of 8 channels, positions w < W and h < H only
+    const int ctid = tid;  // 0 .. 255
+    for (int e = ctid; e < kTcRows * kTcW * (kTcCo / 8);
+         e += kTcConsumers * 128) {
+      const int p = e / (kTcCo / 8), ch = e % (kTcCo / 8);
+      const int h = h0 + p / kTcW, w = w0 + p % kTcW, co = co0 + ch * 8;
+      if (h < H && w < W && co < Co)
+        *reinterpret_cast<uint4*>(
+            y + ((((int64_t)n * Tn + t) * H + h) * W + w) * Co + co) =
+            *reinterpret_cast<const uint4*>(tile + p * kTileStride + ch * 8);
+    }
+    // per-channel sums of the rounded values, in a fixed order: four
+    // quarters of the positions, then the quarters in order
+    const int c = ctid % kTcCo, q = ctid / kTcCo;
+    float t1 = 0.0f, t2 = 0.0f;
+    const int per_q = kTcRows * kTcW / 4;
+    for (int p = q * per_q; p < (q + 1) * per_q; ++p) {
+      const int h = h0 + p / kTcW, w = w0 + p % kTcW;
+      if (h < H && w < W) {
+        const float r = __bfloat162float(tile[p * kTileStride + c]);
+        t1 += r;
+        t2 = fmaf(r, r, t2);
+      }
+    }
+    red[0][q][c] = t1;
+    red[1][q][c] = t2;
+    asm volatile("bar.sync 1, %0;" ::"n"(kTcConsumers * 128) : "memory");
+    if (ctid < kTcCo && co0 + ctid < Co) {
+      const int64_t ch = co0 + ctid;
+      partial[ch * gridDim.x + blockIdx.x] =
+          red[0][0][ctid] + red[0][1][ctid] + red[0][2][ctid] + red[0][3][ctid];
+      partial[((int64_t)Co + ch) * gridDim.x + blockIdx.x] =
+          red[1][0][ctid] + red[1][1][ctid] + red[1][2][ctid] + red[1][3][ctid];
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query so
+// this library need not link libcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// bf16 tensor map with the 128-byte swizzle; dims and box innermost first,
+// strides in bytes of dims 1.. ; returns its CUresult
+CUresult encode_bf16(CUtensorMap* map, const void* base, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides,
+                     const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+            const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 }  // namespace
 
-// x (N, T, H, W, C) and y (N, T, H, W, Co) contiguous, x_dtype 0 float32 /
-// 1 bfloat16 (y alike); w (3, 3, 3, C, Co) contiguous, w_dtype likewise.
-// HT rows a block, co_tile output channels a block (8, 16, 32 or 64,
-// dividing Co), chosen by the wrapper with HT * ceil(W/4) * co_tile / 8 <=
-// 256 threads; smem bytes of dynamic shared memory. partial: float32
+// float32 route. x (N, T, H, W, C) float32 and y (N, T, H, W, Co) float32
+// contiguous; w (3, 3, 3, C, Co) contiguous, w_dtype 0 float32 / 1
+// bfloat16. HT rows a block, co_tile output channels a block (8, 16, 32 or
+// 64, dividing Co), chosen by the wrapper with HT * ceil(W/4) * co_tile / 8
+// <= 256 threads; smem bytes of dynamic shared memory. partial: float32
 // (2, Co, N * T * ceil(H / HT)) scratch; s1, s2: float32 (Co,). Returns
 // cudaGetLastError() (or the error of raising the shared-memory limit).
 extern "C" int conv3d_bn_stats_launch(const void* x, const void* w, void* y,
                                       float* partial, float* s1, float* s2,
-                                      int x_dtype, int w_dtype, int N, int Tn,
-                                      int H, int W, int C, int Co, int HT,
-                                      int co_tile, int64_t smem,
-                                      void* stream_ptr) {
+                                      int w_dtype, int N, int Tn, int H, int W,
+                                      int C, int Co, int HT, int co_tile,
+                                      int64_t smem, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const size_t bytes = (size_t)smem;
-  if (x_dtype == 0) {
-    if (w_dtype == 0)
-      return launch_typed<float, float>(x, w, y, partial, s1, s2, N, Tn, H, W,
-                                        C, Co, HT, co_tile, bytes, stream);
-    return launch_typed<float, __nv_bfloat16>(x, w, y, partial, s1, s2, N, Tn,
-                                              H, W, C, Co, HT, co_tile, bytes,
-                                              stream);
-  }
   if (w_dtype == 0)
-    return launch_typed<__nv_bfloat16, float>(x, w, y, partial, s1, s2, N, Tn,
-                                              H, W, C, Co, HT, co_tile, bytes,
-                                              stream);
-  return launch_typed<__nv_bfloat16, __nv_bfloat16>(
-      x, w, y, partial, s1, s2, N, Tn, H, W, C, Co, HT, co_tile, bytes,
-      stream);
+    return launch_typed<float>(x, w, y, partial, s1, s2, N, Tn, H, W, C, Co,
+                               HT, co_tile, bytes, stream);
+  return launch_typed<__nv_bfloat16>(x, w, y, partial, s1, s2, N, Tn, H, W, C,
+                                     Co, HT, co_tile, bytes, stream);
+}
+
+// bfloat16 route. x (N, T, H, W, C) bf16 contiguous, 16-byte aligned, C % 8
+// == 0; wp the packed weight, bf16 (27, co_pad, 64 * nchunk) contiguous,
+// taps ordered (dt, dw, dh), zero where c >= C or o >= Co; y (N, T, H, W,
+// Co) bf16, Co % 8 == 0; co_pad a multiple of 64. partial: float32 (2, Co,
+// N * T * ceil(H / 8) * ceil(W / 64)) scratch; s1, s2: float32 (Co,).
+// Returns 0, a CUDA runtime error, or 100000 + the CUresult of
+// encoding a tensor map.
+extern "C" int conv3d_bn_stats_tc_launch(const void* x, const void* wp,
+                                         void* y, float* partial, float* s1,
+                                         float* s2, int N, int Tn, int H,
+                                         int W, int C, int Co, int co_pad,
+                                         int nchunk, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  CUtensorMap xmap, wmap;
+  const cuuint64_t e = 2;  // bytes of a bf16
+  const cuuint64_t xdims[5] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                               (cuuint64_t)Tn, (cuuint64_t)N};
+  const cuuint64_t xstrides[4] = {e * C, e * C * W, e * C * W * H,
+                                  e * C * W * H * Tn};
+  const cuuint32_t xbox[5] = {kTcC, kTcW, kTcRows + 2, 1, 1};
+  CUresult r = encode_bf16(&xmap, x, 5, xdims, xstrides, xbox);
+  if (r != CUDA_SUCCESS) return 100000 + (int)r;
+  const cuuint64_t cpad = (cuuint64_t)nchunk * kTcC;
+  const cuuint64_t wdims[3] = {cpad, (cuuint64_t)co_pad, 27};
+  const cuuint64_t wstrides[2] = {e * cpad, e * cpad * co_pad};
+  const cuuint32_t wbox[3] = {kTcC, kTcCo, 3};
+  r = encode_bf16(&wmap, wp, 3, wdims, wstrides, wbox);
+  if (r != CUDA_SUCCESS) return 100000 + (int)r;
+
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3d_bn_stats_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTcSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int nwt = (W + kTcW - 1) / kTcW, nhb = (H + kTcRows - 1) / kTcRows;
+  const dim3 grid((unsigned)((int64_t)N * Tn * nhb * nwt), co_pad / kTcCo);
+  conv3d_bn_stats_tc_kernel<<<grid, kTcThreads, kTcSmem, stream>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(y), partial, Tn, H, W, Co,
+      nchunk);
+  stats_finish_kernel<<<dim3(Co, 2), kThreads, 0, stream>>>(
+      partial, s1, s2, Co, (int)grid.x);
+  return (int)cudaGetLastError();
 }

@@ -1,8 +1,11 @@
 """Fused clip augmentation: wrapper, plain version and launch counter.
 
 Replaces the Pallas kernel ``dualvar_tpu/ops/aug_fused.py:_aug_kernel`` with
-the hand-written CUDA kernel ``csrc/aug_fused.cu`` (one block per frame, see
-the source for the design). Same contract as the JAX ``aug_fused``:
+the hand-written CUDA kernel ``csrc/aug_fused.cu``: a frame is cut into up
+to 8 bands of rows (``_band_plan``), one block a band, and a frame's bands
+are one thread-block cluster that shares the frame's gray sum through
+distributed shared memory (see the source for the design). Same contract as
+the JAX ``aug_fused``:
 
     clips_u8 (N, 3, T, S, S) uint8 planar clips (already cropped)
     orders   (N, 4) int32   jitter op-order permutations of 0..3
@@ -35,9 +38,26 @@ from ..aug import functional as F
 from .build import load_library
 
 _TAPS = 13  # matches aug/functional.py:gaussian_blur default
-# 4 float32 planes of one frame must fit a block's shared memory (227 KB)
-_MAX_SIZE = 120
+_MAX_BANDS = 8  # blocks of a frame: one portable thread-block cluster
+# the largest crop: a round of the kernel's in-place W pass covers at least
+# one row (256 threads, one pixel each at worst), and a band has at most 32
+# rows (kMaxBandRows of csrc/aug_fused.cu)
+_MAX_SIZE = 256
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _band_plan(S: int) -> tuple[int, int, int]:
+    """(bands a frame, rows a band, shared-memory bytes a block) for crop
+    size S: at most 8 bands of ceil(S / 8) rows, one cluster of blocks a
+    frame; a block holds its rows in 3 float32 planes (r, g, b, then their
+    W pass, which the blocks above and below read for the H pass)."""
+    if S > _MAX_SIZE:
+        raise ValueError(f"crop size {S} > {_MAX_SIZE}: the kernel's W pass "
+                         "takes rows of at most 256 pixels")
+    bands = max(1, min(_MAX_BANDS, S))
+    rows = -(-S // bands)
+    bands = -(-S // max(rows, 1))
+    return bands, rows, 4 * 3 * rows * S
 
 
 def aug_fused_plain(clips_u8: torch.Tensor, orders: torch.Tensor,
@@ -111,10 +131,7 @@ def aug_fused(clips_u8: torch.Tensor, orders: torch.Tensor,
     if not clips_u8.is_cuda:
         return aug_fused_plain(clips_u8, orders, factors, blur,
                                out_dtype=out_dtype, normalize=normalize)
-    if clips_u8.shape[-1] > _MAX_SIZE:
-        raise ValueError(
-            f"crop size {clips_u8.shape[-1]} > {_MAX_SIZE}: one frame's "
-            "planes no longer fit a block's shared memory")
+    _band_plan(clips_u8.shape[-1])  # raises on a crop too large for a band
     return _launch(clips_u8, orders, factors, blur, out_dtype, normalize)
 
 
@@ -123,16 +140,21 @@ def _launch(clips_u8, orders, factors, blur, out_dtype, normalize):
     the arguments are already checked. No synchronisation."""
     N, _, T, S, _ = clips_u8.shape
     out = torch.empty(clips_u8.shape, dtype=out_dtype, device=clips_u8.device)
-    if N == 0:
+    if out.numel() == 0:
         return out
+    bands, rows, _ = _band_plan(S)
+    # 4-pixel units (4-byte loads, 16-byte stores) when every row starts on
+    # a 4-byte boundary
+    vec = S % 4 == 0 and clips_u8.data_ptr() % 4 == 0
     fn = load_library("aug_fused").aug_fused_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     with torch.cuda.device(clips_u8.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(clips_u8.data_ptr(), orders.data_ptr(), factors.data_ptr(),
-                 blur.data_ptr(), out.data_ptr(), N, T, S,
-                 int(out_dtype == torch.bfloat16), int(normalize), stream)
+                 blur.data_ptr(), out.data_ptr(), N, T, S, rows, bands,
+                 int(vec), int(out_dtype == torch.bfloat16), int(normalize),
+                 stream)
     aug_fused.launches += 1
     if err != 0:
         raise RuntimeError(f"aug_fused kernel launch failed: CUDA error {err}")

@@ -1,15 +1,17 @@
 """Build and load the package's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. It is
-compiled at first use with ``nvcc`` for sm_90a into a shared library under
-``build/kernels/`` beside the package (an ignored directory) and loaded with
-``ctypes``: seconds to build, no PyTorch headers. A failed build raises.
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface (it may
+include headers ``csrc/*.cuh``). It is compiled at first use with ``nvcc``
+for sm_90a into a shared library under ``build/kernels/`` beside the package
+(an ignored directory) and loaded with ``ctypes``: seconds to build, no
+PyTorch headers. A failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -21,6 +23,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# a kernel's own nvcc flags beside NVCC_FLAGS, by name: for example
+# ("-I/usr/local/cutlass/include",) for a source that includes CuTe. None of
+# the package's kernels needs any today.
+KERNEL_FLAGS: dict[str, tuple[str, ...]] = {}
 
 
 def _nvcc() -> str:
@@ -33,21 +39,35 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
+def library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` lives: its file name carries a
+    hash of the source, of every ``csrc/*.cuh`` header and of the nvcc
+    flags, so an edited source or header, or new flags, give a new library
+    and a stale one is never loaded."""
+    digest = hashlib.sha1()
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + fh.read() + b"\0")
+    digest.update("\0".join(_flags(name)).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is missing, and load it.
-
-    The library's file name carries a hash of the source, so an edited
-    source is rebuilt and a stale library is never loaded."""
+    """Compile ``csrc/<name>.cu`` if its library is missing, and load it."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    lib = library_path(name)
     if not os.path.exists(lib):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src],
+            [_nvcc(), *_flags(name), "-Xptxas", "-v", "-o", tmp, src],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

@@ -5,7 +5,9 @@ Inputs are made with numpy from a seed and handed to both packages. The
 port runs the plain version of its kernel (CPU tensors); the JAX side runs
 ``aug_fused(..., interpret=True)`` as tests/test_aug_fused.py does. The CUDA
 kernel itself is held against the same plain version on the card by
-``chip_smoke.py``.
+``chip_smoke.py``; its band plan (a frame's rows cut into the blocks of one
+cluster, which share the frame mean and the blur's W-pass rows) is replayed
+here by the test-only ``_emulate_bands``.
 """
 
 import itertools
@@ -22,7 +24,8 @@ from dualvar_tpu_torch.aug import functional as TF
 from dualvar_tpu_torch.aug.pipeline import (AugConfig, _draw_clip_params,
                                             pretrain_batch,
                                             pretrain_batch_fused)
-from dualvar_tpu_torch.ops.aug_fused import aug_fused, aug_fused_plain
+from dualvar_tpu_torch.ops.aug_fused import (_band_plan, aug_fused,
+                                             aug_fused_plain)
 
 import torch_port_util  # noqa: F401  (caps torch's threads)
 
@@ -269,3 +272,134 @@ def test_pretrain_batch_dispatch_and_unported_modes():
     with pytest.raises(ValueError, match="auto/on/off"):
         pretrain_batch(torch.Generator(), frames,
                        AugConfig(img_dim=SIZE, seq_len=T, fused="maybe"))
+
+
+def _w_pass(x, k):
+    """The blur's W pass of (..., W, 3) rows: clamped neighbours, taps added
+    in order, as aug/functional.py:gaussian_blur adds them."""
+    W = x.shape[-2]
+    pos = torch.arange(W)
+    acc = torch.zeros_like(x)
+    for j in range(k.numel()):
+        acc = acc + k[j] * x[..., (pos - 6 + j).clamp(0, W - 1), :]
+    return acc
+
+
+def _emulate_bands(clips_u8, orders, factors, blur, normalize=True,
+                   whole_frame_mean=False):
+    """The kernel's band plan in plain torch (the ops of aug/functional.py),
+    clip by clip: each band of ``_band_plan`` runs the ops before contrast on
+    its own rows and sums their gray; the frame mean is the sum of the band
+    sums in band order over S*S; contrast and the ops after it run on the
+    band's rows; a blurred clip's band runs the W pass on its rows, and the
+    H pass of its rows reads the W pass of frame rows clamp(y - 6 + j) from
+    the bands that own them (the cluster's distributed shared memory).
+    ``whole_frame_mean`` takes the mean as ``adjust_contrast`` does instead,
+    to isolate the band plan from the mean's summation order."""
+    N, _, T, S, _ = clips_u8.shape
+    nb, br, _ = _band_plan(S)
+    ops = (TF.adjust_brightness, None, TF.adjust_saturation, TF.adjust_hue)
+    out = torch.empty(N, T, S, S, 3)
+    for i in range(N):
+        x = TF.to_float(clips_u8[i].permute(1, 2, 3, 0))  # (T, S, S, 3)
+        order = orders[i].tolist()
+        f = factors[i]
+        c_slot = order.index(1)
+        bands, sums = [], torch.zeros(T)
+        for b in range(nb):
+            sub = x[:, b * br:(b + 1) * br]
+            for op in order[:c_slot]:
+                sub = ops[op](sub, f[op])
+            sums += TF.grayscale(sub).sum(dim=(1, 2, 3))
+            bands.append(sub)
+        mean = (sums * (1.0 / (S * S))).reshape(T, 1, 1, 1)
+        if whole_frame_mean:
+            pre = x
+            for op in order[:c_slot]:
+                pre = ops[op](pre, f[op])
+            mean = TF.grayscale(pre).mean(dim=(-3, -2), keepdim=True)
+        for b, sub in enumerate(bands):
+            sub = TF._blend(sub, mean, f[1])
+            for op in order[c_slot + 1:]:
+                sub = ops[op](sub, f[op])
+            bands[b] = sub
+        if bool(blur[i, 1] > 0):
+            r = torch.arange(-6, 7, dtype=torch.float32)
+            k = torch.exp(-0.5 * (r / blur[i, 0].clamp_min(1e-6)) ** 2)
+            k = k / k.sum()
+            wrows = torch.cat([_w_pass(sub, k) for sub in bands], dim=1)
+            for b in range(nb):
+                ys = torch.arange(b * br, min((b + 1) * br, S))
+                acc = torch.zeros(T, len(ys), S, 3)
+                for j in range(13):
+                    acc = acc + k[j] * wrows[:, (ys - 6 + j).clamp(0, S - 1)]
+                bands[b] = acc
+        out[i] = torch.cat(bands, dim=1)
+    if normalize:
+        out = TF.normalize(out)
+    return out.permute(0, 4, 1, 2, 3).contiguous()
+
+
+@pytest.mark.parametrize("n,size", [(24, SIZE), (6, 20)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_band_emulation_matches_plain_and_jax(n, size, normalize):
+    """Every op order, blur on and off. With the plain version's frame mean
+    the band plan (rows, the W-pass rows read across bands, clamped edges)
+    gives the plain version to 1e-6; with the fixed-order sum of the
+    band sums it gives the plain version and the JAX kernel (interpret
+    mode) within ATOL: the mean then differs by float32 summation order,
+    which hue's divisions magnify near grays."""
+    clips, orders, factors, blur = _kernel_inputs(n, 7)
+    clips = np.ascontiguousarray(clips[..., :size, :size])
+    args = tuple(map(torch.from_numpy, (clips, orders, factors, blur)))
+    plain = aug_fused_plain(*args, normalize=normalize)
+    same_mean = _emulate_bands(*args, normalize=normalize,
+                               whole_frame_mean=True)
+    np.testing.assert_allclose(same_mean.numpy(), plain.numpy(), atol=1e-6)
+    got = _emulate_bands(*args, normalize=normalize)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
+    want = np.asarray(jax_aug_fused(
+        jnp.asarray(clips), jnp.asarray(orders), jnp.asarray(factors),
+        jnp.asarray(blur), normalize=normalize, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+def test_band_sums_give_the_frame_mean():
+    """The fixed-order sum of the band sums over S*S is the frame's mean
+    gray to float32 rounding (1e-6 relative), for every band plan of the
+    test sizes."""
+    rng = np.random.default_rng(8)
+    for S in (SIZE, 20, 9, 112):
+        x = torch.from_numpy(rng.uniform(0, 1, (3, S, S, 3)).astype(
+            np.float32))
+        gray = TF.grayscale(x)
+        nb, br, _ = _band_plan(S)
+        sums = torch.zeros(3)
+        for b in range(nb):
+            sums += gray[:, b * br:(b + 1) * br].sum(dim=(1, 2, 3))
+        want = gray.double().mean(dim=(1, 2, 3))
+        assert torch.allclose(sums.double() / (S * S), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("S,want", [
+    (112, (8, 14, 18816)),    # the presets' crop: 8 bands of 14 rows
+    (32, (8, 4, 1536)),       # the test size: the blur reaches 2 bands away
+    (20, (7, 3, 720)),        # a short last band (2 rows)
+    (9, (5, 2, 216)),
+    (1, (1, 1, 12)),
+    (256, (8, 32, 98304)),    # the largest crop
+])
+def test_band_plan(S, want):
+    """(bands, rows a band, shared-memory bytes): at most one cluster of 8
+    blocks a frame, every frame row owned by exactly one band."""
+    bands, rows, smem = _band_plan(S)
+    assert (bands, rows, smem) == want
+    owned = [y for b in range(bands) for y in range(b * rows,
+                                                     min((b + 1) * rows, S))]
+    assert owned == list(range(S))
+    assert bands <= 8 and (bands - 1) * rows < S
+
+
+def test_band_plan_refuses_a_crop_larger_than_a_round():
+    with pytest.raises(ValueError, match="crop size 257"):
+        _band_plan(257)

@@ -3,9 +3,12 @@
 ``_fused_fwd`` (Pallas kernel in interpret mode), ``conv3d_bn_stats_xla``
 and the custom-VJP backward ``_bwd``, on the CPU.
 
-On CPU tensors the forward takes its plain version; the CUDA kernel is held
-against that version, and against float64 sums of its own output, on the
-card by ``chip_smoke.py``.
+On CPU tensors the forward takes its plain version; the CUDA kernels are
+held against that version, and against float64 sums of their own output, on
+the card by ``chip_smoke.py``. What the kernels' index plans do is held here
+instead: ``_emulate_tensor_cores`` replays the bfloat16 route's blocks, boxes
+and packed weights in float32 (a test-only emulation; nothing on the main
+path calls it).
 """
 
 import jax
@@ -52,7 +55,9 @@ def test_forward_on_cpu_is_the_plain_version_without_a_graph():
     for g, wnt in zip(got, want):
         assert not g.requires_grad
         assert torch.equal(g, wnt)
-    assert TC.conv3d_bn_stats_forward.launches == 0  # no kernel on the CPU
+    # no kernel of either route on the CPU
+    assert TC.tensor_core_forward.launches == 0
+    assert TC.cuda_core_forward.launches == 0
 
 
 def test_backward_matches_jax_bwd_on_the_same_residuals():
@@ -128,3 +133,155 @@ def test_tiling_fits_a_block(W, Co, want):
     assert ht * -(-W // 4) * co_tile // 8 <= 256 and smem <= 232448
     with pytest.raises(ValueError, match="too wide"):
         TC._tiling(4096, 8)
+
+
+def _box(x, n, t, h0, w0, c0, rows):
+    """What one TMA load of the bfloat16 route brings: x[n, t, h0 : h0 +
+    rows, w0 : w0 + 64, c0 : c0 + 64] with zeros wherever the coordinates
+    fall outside x (negative ones included), as (rows, 64, 64)."""
+    _, T, H, W, C = x.shape
+    box = torch.zeros(rows, TC._TC_W, TC._TC_C, dtype=x.dtype)
+    if not 0 <= t < T:
+        return box
+    hs, ws, cs = (range(max(a, 0), min(a + k, m)) for a, k, m in
+                  ((h0, rows, H), (w0, TC._TC_W, W), (c0, TC._TC_C, C)))
+    if len(hs) and len(ws) and len(cs):
+        box[hs.start - h0:hs.stop - h0, ws.start - w0:ws.stop - w0,
+            cs.start - c0:cs.stop - c0] = x[n, t, hs.start:hs.stop,
+                                           ws.start:ws.stop, cs.start:cs.stop]
+    return box
+
+
+def _emulate_tensor_cores(x, w):
+    """The bfloat16 route's plan in plain torch, in x's dtype with float32
+    sums: blocks of 8 output rows x 64 w of one (n, t) and 64 output
+    channels, decoded from the block index as the kernel does (w tile
+    fastest); K-steps (chunk, dt, dw), frames outside the clip skipped; ONE
+    box a step, rows h0 - 1 .. h0 + 8, whose rows r + dh feed output row r
+    with the packed weight of tap (3 dt + dw) 3 + dh; y rounded to x's
+    dtype; per-block sums of the rounded y over the valid positions, added
+    in block order. Returns (y, s1, s2)."""
+    N, T, H, W, C = x.shape
+    Co = w.shape[4]
+    rows, bw, bc, bco = TC._TC_ROWS, TC._TC_W, TC._TC_C, TC._TC_CO
+    nchunk, co_pad, grid_x = TC._tc_plan(N, T, H, W, C, Co)
+    # w used in x's dtype, as the kernel's bf16 operands use it
+    wp = TC.pack_weight(w, nchunk * bc, co_pad, dtype=x.dtype).float()
+    nwt, nhb = -(-W // bw), -(-H // rows)
+    y = torch.zeros((N, T, H, W, Co), dtype=x.dtype)
+    partial = torch.zeros((2, Co, grid_x))
+    for blk in range(grid_x):
+        wt, hb = blk % nwt, (blk // nwt) % nhb
+        t, n = (blk // (nwt * nhb)) % T, blk // (nwt * nhb * T)
+        h0, w0 = hb * rows, wt * bw
+        nh, nw = min(rows, H - h0), min(bw, W - w0)
+        dts = [dt for dt in range(3) if 0 <= t + dt - 1 < T]
+        for co0 in range(0, co_pad, bco):
+            acc = torch.zeros(rows, bw, bco)
+            for c0 in range(0, nchunk * bc, bc):
+                for dt in dts:
+                    for dw in range(3):
+                        box = _box(x, n, t + dt - 1, h0 - 1, w0 + dw - 1, c0,
+                                   rows + 2).float()
+                        for dh in range(3):
+                            wtap = wp[(3 * dt + dw) * 3 + dh,
+                                      co0:co0 + bco, c0:c0 + bc]
+                            acc += box[dh:dh + rows] @ wtap.T
+            out = acc.to(x.dtype)[:nh, :nw, :max(0, min(bco, Co - co0))]
+            y[n, t, h0:h0 + nh, w0:w0 + nw, co0:co0 + out.shape[-1]] = out
+            r = out.float().reshape(-1, out.shape[-1])
+            partial[0, co0:co0 + r.shape[1], blk] = r.sum(0)
+            partial[1, co0:co0 + r.shape[1], blk] = (r * r).sum(0)
+    return y, partial[0].sum(-1), partial[1].sum(-1)
+
+
+@pytest.mark.parametrize("shape,Co", [
+    ((2, 5, 9, 13, 24), 40),   # ragged: C < 64, Co < 64, H not a band multiple
+    ((1, 3, 4, 70, 16), 16),   # W > 64: two w tiles, the second of 6
+    ((1, 2, 3, 5, 72), 8),     # C > 64: two channel chunks, the second of 8
+])
+def test_tensor_core_plan_emulation_matches_plain_and_xla(shape, Co):
+    """The bfloat16 route's boxes, taps and packed weights, replayed in
+    float32, give the plain version and the JAX ``conv3d_bn_stats_xla``
+    (tolerances of tests/test_conv_fused.py)."""
+    rng = np.random.default_rng(sum(shape) + Co)
+    C = shape[-1]
+    x = rng.standard_normal(shape).astype(np.float32)
+    # y of about unit size, so the float32 sums stay inside the tolerances
+    w = (rng.standard_normal((3, 3, 3, C, Co))
+         * 0.5 / np.sqrt(27 * C)).astype(np.float32)
+    got = _emulate_tensor_cores(torch.from_numpy(x), torch.from_numpy(w))
+    plain = TC.conv3d_bn_stats_plain(torch.from_numpy(x), torch.from_numpy(w))
+    xla = JC.conv3d_bn_stats_xla(jnp.asarray(x), jnp.asarray(w))
+    for want in (tuple(t.numpy() for t in plain),
+                 tuple(np.asarray(t) for t in xla)):
+        np.testing.assert_allclose(got[0].numpy(), want[0], atol=2e-5)
+        np.testing.assert_allclose(got[1].numpy(), want[1], atol=1e-4)
+        np.testing.assert_allclose(got[2].numpy(), want[2], atol=1e-3)
+
+
+def test_tensor_core_plan_emulation_in_bfloat16_matches_plain():
+    """In bfloat16 the emulation rounds the same float32 sums as the plain
+    version (a float32 conv of the rounded inputs): y within one bf16 ulp,
+    the sums within an ulp of the summed magnitudes."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((1, 3, 9, 13, 24)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((3, 3, 3, 24, 16))
+                          / np.sqrt(27 * 24)).astype(np.float32))
+    y, s1, s2 = _emulate_tensor_cores(x, w)
+    ref = TC.conv3d_bn_stats_plain(x.float(), w.to(torch.bfloat16).float())[0]
+    assert y.dtype == torch.bfloat16
+    assert float(((y.float() - ref).abs()
+                  / (2.0 ** -8 * ref.abs() + 1e-4)).max()) <= 1.0
+    yf = y.float().reshape(-1, 16)
+    assert torch.allclose(s1, yf.sum(0), atol=1e-4)
+    assert torch.allclose(s2, (yf * yf).sum(0), rtol=1e-5, atol=1e-4)
+
+
+def test_pack_weight_orders_taps_dt_dw_dh_and_pads_with_zeros():
+    w = torch.arange(3 * 3 * 3 * 5 * 6, dtype=torch.float32).reshape(
+        3, 3, 3, 5, 6)
+    wp = TC.pack_weight(w, 64, 64, dtype=torch.float32)
+    assert wp.shape == (27, 64, 64) and wp.is_contiguous()
+    for dt, dh, dw in ((0, 0, 0), (0, 2, 1), (1, 1, 2), (2, 0, 1)):
+        tap = (3 * dt + dw) * 3 + dh
+        assert torch.equal(wp[tap, :6, :5], w[dt, dh, dw].T)
+    assert not wp[:, 6:].any() and not wp[:, :, 5:].any()
+    assert TC.pack_weight(w, 64, 64).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dims,want", [
+    ((16, 16, 56, 56, 64, 64), (1, 64, 16 * 16 * 7)),   # path R's layer 1
+    ((16, 8, 28, 28, 128, 128), (2, 128, 16 * 8 * 4)),  # layer 2
+    ((2, 5, 9, 13, 24, 40), (1, 64, 2 * 5 * 2)),        # ragged
+    ((1, 3, 4, 130, 16, 72), (1, 128, 3 * 3)),          # three w tiles
+    ((0, 3, 4, 4, 8, 8), (1, 64, 0)),                   # empty
+])
+def test_tensor_core_plan(dims, want):
+    """(channel chunks, padded Co, blocks along the positions)."""
+    assert TC._tc_plan(*dims) == want
+
+
+@pytest.mark.parametrize("x_dtype,C,Co,w_dtype,want", [
+    (torch.bfloat16, 64, 64, torch.float32, "tensor_cores"),
+    (torch.bfloat16, 24, 40, torch.bfloat16, "tensor_cores"),
+    (torch.float32, 3, 8, torch.float32, "cuda_cores"),
+    (torch.float32, 64, 64, torch.bfloat16, "cuda_cores"),
+    (torch.bfloat16, 12, 64, torch.float32, ValueError),   # C % 8
+    (torch.bfloat16, 64, 36, torch.float32, ValueError),   # Co % 8
+    (torch.float32, 64, 12, torch.float32, ValueError),    # Co % 8
+    (torch.float16, 64, 64, torch.float32, TypeError),
+    (torch.float64, 64, 64, torch.float64, TypeError),
+    (torch.bfloat16, 64, 64, torch.float16, TypeError),
+])
+def test_route_by_dtype(x_dtype, C, Co, w_dtype, want):
+    """bf16 x -> the tensor cores, float32 x -> the CUDA cores, anything
+    else raises: no route falls back to another."""
+    x = torch.zeros((1, 2, 3, 4, C), dtype=x_dtype)
+    w = torch.zeros((3, 3, 3, C, Co), dtype=w_dtype)
+    if isinstance(want, str):
+        assert TC._route(x, w) == want
+    else:
+        with pytest.raises(want):
+            TC._route(x, w)

@@ -99,3 +99,35 @@ def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load_library("aug_fused")
     assert os.listdir(tmp_path) == []
+
+
+def test_library_name_covers_source_headers_and_flags(tmp_path, monkeypatch):
+    """The cached library's name changes with the kernel's source, with any
+    ``csrc/*.cuh`` header's bytes and with the kernel's nvcc flags, and not
+    with another kernel's source: an edited header is never loaded from a
+    stale library. No nvcc needed."""
+    from dualvar_tpu_torch.ops import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "kernels"))
+    monkeypatch.setattr(build, "KERNEL_FLAGS", {})
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "other.cu").write_text("// another kernel\n")
+    (csrc / "h.cuh").write_text("#define X 1\n")
+    first = build.library_path("k")
+    assert os.path.dirname(first) == str(tmp_path / "kernels")
+    assert os.path.basename(first).startswith("libk_")
+    (csrc / "other.cu").write_text("// edited\n")
+    assert build.library_path("k") == first
+    (csrc / "h.cuh").write_text("#define X 2\n")
+    second = build.library_path("k")
+    assert second != first
+    (csrc / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    third = build.library_path("k")
+    assert third not in (first, second)
+    monkeypatch.setattr(build, "KERNEL_FLAGS", {"k": ("-DEXTRA",)})
+    assert build.library_path("k") not in (first, second, third)
+    monkeypatch.setattr(build, "KERNEL_FLAGS", {"other": ("-DEXTRA",)})
+    assert build.library_path("k") == third
