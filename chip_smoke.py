@@ -10,9 +10,13 @@ Phases, each fatal on failure (non-zero exit):
 1. device: card name and power limit, CUDA version, TF32 flags;
 2. build: every CUDA kernel of the paths below, from
    ``dualvar_tpu_torch/csrc``, one ``nvcc`` a source, all started together;
+   the soft-DTW kernels must show no stack frame and no spills in the
+   ptxas log;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it, then timed beside its roofline bound:
-   ``aug_fused``, the soft-DTW forward and backward kernels, the channel
+   ``aug_fused``, the soft-DTW forward and backward kernels (every column
+   bucket and both routes, at path M's and path M16's shapes; timed with
+   their data out of L2, the rows route beside the 2x2 route), the channel
    sums of the batch norm (``channel_sums``; also against float64 sums) and
    the 3x3x3 conv with BN statistics (``conv3d_bn_stats``, both routes: the
    bfloat16 tensor-core kernel and the float32 CUDA-core kernel; its sums
@@ -25,6 +29,8 @@ Phases, each fatal on failure (non-zero exit):
    - path M: preset ``paper_table2_moco_r21d`` in mode ``clip-sr-dtw`` (MoCo
      TimeSeriesV4, K=16384: soft-DTW of every query against the whole
      queue), with checks of the queues, the pointer and the key encoder;
+   - path M16: path M with ``n_series=16`` (pairs of 16x16), the same
+     counts and checks;
    - path S: ``paper_table1_k400`` in mode ``clip-sr-dtw``;
    - path R: ``paper_table1_k400`` with ``--net r3d --model simclr_naked``
      (SimCLR NT-Xent on R3D-18) with ``DUALVAR_BN_STATS=pallas`` (every batch
@@ -33,8 +39,9 @@ Phases, each fatal on failure (non-zero exit):
      against that layer's output and the batch statistics its ``bn2`` used;
    - the presets ``smoke``, ``smoke_dualvar`` and ``smoke_moco``, one step;
    then step times at B=8 and B=32 (MoCo in ``clip-sr-tc`` and
-   ``clip-sr-dtw``: the difference is what soft-DTW and its cost tensor
-   take), and of path R at B=8, 32 and 128 with the variable on and off;
+   ``clip-sr-dtw``, at n_series 2 and 16: the difference is what soft-DTW
+   and its cost tensor take), and of path R at B=8, 32 and 128 with the
+   variable on and off;
 5. on-card float32 checks: one train-mode forward with TF32 off against the
    same forward on the CPU from the same weights and block, for the SimCLR
    model, for MoCo in mode ``clip-sr-dtw`` (where the CPU side runs the
@@ -67,6 +74,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+# special functions (exp2, log2, reciprocal): 16 results a clock an SM
+# (Hopper white paper), 132 SMs at the 1.98 GHz boost clock that the float32
+# peak above also assumes
+SPECIAL_OPS_PER_S = 16 * 132 * 1.98e9
 
 TRAIN_STEPS = 4
 PATH_S_STEPS = 2
@@ -259,35 +270,183 @@ def check_aug_kernel(torch, device) -> dict:
     }
 
 
-def dtw_bound_ms(P: int, N: int, M: int, backward: bool) -> tuple[float, str]:
-    """The least time the card could take for one soft-DTW pass. Bytes:
-    forward D read, R and the values written; backward D, R, g read and dD
-    written. Operations, float32, a cell: forward 3 divisions, 3 exp, 1 log
-    and 11 add / multiply / max; backward 3 exp, 6 subtractions, 3
-    multiplications and 3 multiply-adds (counted as 2)."""
+def dtw_bytes(P: int, N: int, M: int, backward: bool) -> int:
+    """Bytes one soft-DTW pass must move: forward D read, R and the values
+    written (8 a cell, 4 a pair); backward D, R, g read and dD written (12 a
+    cell, 4 a pair)."""
+    return 4 * ((3 if backward else 2) * P * N * M + P)
+
+
+def dtw_bound_parts(P: int, N: int, M: int,
+                    backward: bool) -> dict[str, float]:
+    """Three floors, in ms, for one soft-DTW pass. Bytes: ``dtw_bytes``.
+    Float32 operations a cell: forward 3 multiplications by 1/gamma, 3 exp,
+    1 log and 11 add / multiply / max; backward 3 exp, 6 subtractions, 3
+    multiplications and 3 multiply-adds (counted as 2) - 18 either way.
+    Special functions a cell, on their own units at 16 a clock an SM:
+    forward 3 exp + 1 log, backward 3 exp."""
     cells = P * N * M
-    if backward:
-        bytes_moved, ops = 4 * (3 * cells + P), 18 * cells
-    else:
-        bytes_moved, ops = 4 * (2 * cells + P), 18 * cells
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return {"bytes_ms": dtw_bytes(P, N, M, backward) / HBM_BYTES_PER_S * 1e3,
+            "f32_ms": 18 * cells / F32_FLOPS_PER_S * 1e3,
+            "special_ms": (3 if backward else 4) * cells
+            / SPECIAL_OPS_PER_S * 1e3}
+
+
+def dtw_bound_ms(P: int, N: int, M: int, backward: bool) -> tuple[float, str]:
+    """The least time the card could take for one soft-DTW pass: the larger
+    of the bytes floor and the operations floor, the latter the larger of the
+    float32 and the special-function floors (``dtw_bound_parts``). Bytes
+    bind at every shape the models give: at 16x16 the forward's 2.4 ps a
+    cell of bytes against 1.0 ps of special functions, the backward's 3.6
+    against 0.7."""
+    parts = dtw_bound_parts(P, N, M, backward)
+    t_ops = max(parts["f32_ms"], parts["special_ms"])
+    t_bytes = parts["bytes_ms"]
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_soft_dtw_kernels(torch, device) -> tuple[dict, dict]:
-    """Both soft-DTW kernels against the plain recurrences on the card, then
-    their times at the path-M shapes."""
+# soft-DTW correctness cases (P, N, M, gamma, band, offset): path M at B=8
+# and path M16's query-key call (B pairs of 16x16); the largest size without
+# and with a band; non-square with P not a multiple of a warp's 32 pairs;
+# then the rows route's edges: one row, one column (bucket 2), a band
+# narrower than the length gap, each square bucket, 8-byte copies (M = 6), a
+# single pair, a ragged P at 16x16, and 2x2 at addresses 4 and 8 bytes past
+# a 16-byte boundary (the rows route with 4- and 8-byte copies). Every
+# DTW_TIMED shape is checked too, on the inputs it is timed on.
+DTW_CASES = ((131080, 2, 2, 0.1, 0.0, 0), (8, 16, 16, 0.1, 0.0, 0),
+             (4096, 16, 16, 0.1, 0.0, 0), (4096, 16, 16, 0.1, 3.0, 0),
+             (1000, 5, 7, 1.0, 0.0, 0), (777, 1, 16, 0.1, 0.0, 0),
+             (777, 16, 1, 0.1, 0.0, 0), (777, 3, 16, 0.1, 2.0, 0),
+             (4099, 4, 4, 0.1, 0.0, 0), (4099, 8, 8, 0.1, 0.0, 0),
+             (777, 6, 6, 0.1, 0.0, 0), (1, 16, 16, 0.1, 0.0, 0),
+             (1, 2, 2, 0.1, 0.0, 0), (129, 16, 16, 0.1, 0.0, 0),
+             (4099, 2, 2, 0.1, 0.0, 1), (4099, 2, 2, 0.1, 0.0, 2))
+# soft-DTW timing shapes: path M at B=8 and B=32 (K=16384, 2x2), the middle
+# buckets, path M16 (n_series 16) at B=8 and B=32
+DTW_TIMED = (("path M, B=8", (131080, 2, 2)), ("path M, B=32", (524320, 2, 2)),
+             ("4x4", (131080, 4, 4)), ("8x8", (131080, 8, 8)),
+             ("path M16, B=8", (131080, 16, 16)),
+             ("path M16, B=32", (524320, 16, 16)))
+
+
+def dtw_inputs(torch, P, N, M, seed, device):
     import numpy as np
 
-    from dualvar_tpu_torch.ops import soft_dtw as mod
+    rng = np.random.default_rng(seed)
+    D = rng.uniform(-1.0, 1.0, (P, N, M)).astype(np.float32)
+    g = rng.normal(size=P).astype(np.float32)
+    return torch.from_numpy(D).to(device), torch.from_numpy(g).to(device)
 
-    def inputs(P, N, M, seed):
-        rng = np.random.default_rng(seed)
-        D = rng.uniform(-1.0, 1.0, (P, N, M)).astype(np.float32)
-        g = rng.normal(size=P).astype(np.float32)
-        return torch.from_numpy(D).to(device), torch.from_numpy(g).to(device)
 
+def off_boundary(t, floats: int):
+    """A copy of ``t`` whose data starts ``floats`` floats past a 16-byte
+    boundary (the allocator's blocks start on one)."""
+    return t.new_empty(t.numel() + floats)[floats:].view_as(t).copy_(t)
+
+
+def l2_bytes(torch) -> int:
+    """The card's L2 size (50 MB on an H100)."""
+    return getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                   50 << 20)
+
+
+def cold_copies(torch, nbytes: int) -> int:
+    """How many copies of a launch's ``nbytes`` (inputs and outputs) hold
+    at least four times the L2 between them."""
+    return max(1, math.ceil(4 * l2_bytes(torch) / nbytes))
+
+
+def time_cuda_graph_cold(torch, launch, copies: int, iters: int = 20) -> float:
+    """Median milliseconds of one ``launch(c)`` when launches on copies c =
+    0, 1, ..., copies - 1 of a kernel's inputs and outputs (``cold_copies``:
+    four L2s of them) are replayed in turn from a CUDA graph, at least 10: no
+    launch finds its data in L2, as a bound by DRAM bytes assumes."""
+    reps = copies * math.ceil(10 / copies)
+    for c in range(copies):
+        launch(c)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(reps):
+            launch(k % copies)
+    return time_cuda(torch, graph.replay, iters) / reps
+
+
+def dtw_copies(torch, D, R, g, backward: bool, copies: int,
+               offset: int = 0) -> list[tuple]:
+    """``copies`` sets of the tensors of one soft-DTW launch: forward (D, R,
+    values), backward (D, R, g, dD), with D, R and g copied from the ones
+    given and dD, R (forward) and values to be written; D, R and dD start
+    ``offset`` floats past a 16-byte boundary."""
+    out = []
+    for _ in range(copies):
+        if backward:
+            out.append((off_boundary(D, offset), off_boundary(R, offset),
+                        g.clone(), off_boundary(torch.empty_like(D), offset)))
+        else:
+            out.append((off_boundary(D, offset),
+                        off_boundary(torch.empty_like(D), offset),
+                        D.new_empty(D.shape[0])))
+    return out
+
+
+def dtw_launcher(mod, args: list[tuple], backward: bool):
+    """``launch(c)``: this tree's soft-DTW forward (or backward) kernel,
+    gamma 0.1, on ``args[c]`` (``dtw_copies``). Goes to the entry point
+    directly: launches made to time a kernel do not count."""
+    name = "soft_dtw_bwd_launch" if backward else "soft_dtw_fwd_launch"
+    return lambda c: mod._launch(name, args[c], args[c][0].shape, 0.1, 0.0)
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Registers, stack frame and spills of every kernel in the ptxas log of
+    library ``name``, the one ``ops/build.py`` keeps beside it."""
+    import re
+
+    from dualvar_tpu_torch.ops.build import ptxas_log_path
+
+    rows, fn = [], None
+    with open(ptxas_log_path(name)) as fh:
+        for line in fh:
+            if m := re.search(r"Compiling entry function '([^']+)'", line):
+                fn = {"kernel": m.group(1)}
+                rows.append(fn)
+            elif fn and (m := re.search(
+                    r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads", line)):
+                fn.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                          spill_loads=int(m.group(3)))
+            elif fn and (m := re.search(r"Used (\d+) registers", line)):
+                fn["registers"] = int(m.group(1))
+    for row in rows:  # ..._rowsILi16EE... -> soft_dtw_fwd_rows<16>
+        m = re.search(r"(soft_dtw_(?:fwd|bwd)_(?:rows|2x2))(?:ILi(\d+)E)?",
+                      row["kernel"])
+        if m:
+            row["kernel"] = m.group(1) + (f"<{m.group(2)}>" if m.group(2)
+                                          else "")
+    return rows
+
+
+def check_soft_dtw_ptxas() -> list[dict]:
+    """Every soft-DTW instantiation (rows route at buckets 2, 4, 8, 16 and
+    the 2x2 route, forward and backward) keeps its rows in registers: no
+    stack frame, no spills."""
+    rows = ptxas_report("soft_dtw")
+    print("build: soft_dtw kernels " + json.dumps(rows), flush=True)
+    if len(rows) != 10 or any(
+            row.get("stack", 1) or row.get("spill_stores", 1)
+            or row.get("spill_loads", 1) for row in rows):
+        fail("soft_dtw: not 10 kernels with 0 bytes of stack and spills in "
+             f"the ptxas log: {rows}")
+    return rows
+
+
+def check_dtw_case(torch, mod, D, g, gamma: float, band: float,
+                   label: str) -> tuple[float, float]:
+    """Both soft-DTW kernels against the plain recurrences on D, g: the
+    values and R, dD from the same R, and the differentiable function's
+    gradient end to end, each side from its own R. Returns the forward's
+    and the backward's largest errors; fails past a tolerance."""
     def max_err(got, want):
         """Largest |got - want| over the finite entries; inf where the two
         disagree on which entries are infinite."""
@@ -298,46 +457,53 @@ def check_soft_dtw_kernels(torch, device) -> tuple[dict, dict]:
         err = (got - want)[finite].abs()
         return float(err.max()) if err.numel() else 0.0
 
-    worst_fwd = worst_bwd = 0.0
-    # path M at B=8 (B*K + B pairs of 2x2, gamma 0.1); the largest supported
-    # size without and with a band; non-square with P not a block multiple
-    for P, N, M, gamma, band in ((131080, 2, 2, 0.1, 0.0),
-                                 (4096, 16, 16, 0.1, 0.0),
-                                 (4096, 16, 16, 0.1, 3.0),
-                                 (1000, 5, 7, 1.0, 0.0)):
-        D, g = inputs(P, N, M, seed=P + N)
-        values, R = mod.soft_dtw_forward(D, gamma, band)
-        R_plain = mod._softdtw_R_plain(D, gamma, band)
-        dD = mod.soft_dtw_backward(D, R, g, gamma, band)
-        dD_plain = mod._softdtw_E_plain(D, R, gamma, band) * g[:, None, None]
-        # the differentiable function end to end, each side from its own R
-        leaf_k, leaf_p = (D.clone().requires_grad_() for _ in range(2))
-        (mod.soft_dtw(leaf_k, gamma, band) * g).sum().backward()
-        (mod.soft_dtw_plain(leaf_p, gamma, band) * g).sum().backward()
-        torch.cuda.synchronize()
-        err_v = max_err(values, R_plain[:, -1, -1])
-        err_r = max_err(R, R_plain)
-        err_g = max_err(dD, dD_plain)
-        err_e2e = max_err(leaf_k.grad, leaf_p.grad)
-        # on the scale of the largest finite |R|: a cell near 0 carries the
-        # rounding of the larger cells it was summed from
-        r_tol = DTW_ATOL + DTW_RTOL * float(
-            R_plain[torch.isfinite(R_plain)].abs().max())
-        print(f"kernels: soft_dtw P={P} N={N} M={M} gamma={gamma} "
-              f"band={band}: values {err_v:.3e} R {err_r:.3e} (tolerance "
-              f"{r_tol:.3e}) dD {err_g:.3e} (atol {DTW_GRAD_ATOL}, same R) "
-              f"dD end to end {err_e2e:.3e} (atol {DTW_GRAD_E2E_ATOL})",
-              flush=True)
-        if band and not bool(torch.isinf(R).any()):
-            fail("soft_dtw: a banded R holds no +inf")
-        if not (err_v <= r_tol and err_r <= r_tol and err_g <= DTW_GRAD_ATOL
-                and err_e2e <= DTW_GRAD_E2E_ATOL):
-            fail(f"soft_dtw kernels disagree with the plain version at "
-                 f"P={P} N={N} M={M} band={band}")
-        worst_fwd = max(worst_fwd, err_v, err_r)
-        worst_bwd = max(worst_bwd, err_g)
+    values, R = mod.soft_dtw_forward(D, gamma, band)
+    R_plain = mod._softdtw_R_plain(D, gamma, band)
+    dD = mod.soft_dtw_backward(D, R, g, gamma, band)
+    dD_plain = mod._softdtw_E_plain(D, R, gamma, band) * g[:, None, None]
+    leaf_k, leaf_p = (D.clone().requires_grad_() for _ in range(2))
+    (mod.soft_dtw(leaf_k, gamma, band) * g).sum().backward()
+    (mod.soft_dtw_plain(leaf_p, gamma, band) * g).sum().backward()
+    torch.cuda.synchronize()
+    err_v = max_err(values, R_plain[:, -1, -1])
+    err_r = max_err(R, R_plain)
+    err_g = max_err(dD, dD_plain)
+    err_e2e = max_err(leaf_k.grad, leaf_p.grad)
+    # on the scale of the largest finite |R|: a cell near 0 carries the
+    # rounding of the larger cells it was summed from
+    r_tol = DTW_ATOL + DTW_RTOL * float(
+        R_plain[torch.isfinite(R_plain)].abs().max())
+    print(f"kernels: soft_dtw {label} gamma={gamma} band={band}: values "
+          f"{err_v:.3e} R {err_r:.3e} (tolerance {r_tol:.3e}) dD "
+          f"{err_g:.3e} (atol {DTW_GRAD_ATOL}, same R) dD end to end "
+          f"{err_e2e:.3e} (atol {DTW_GRAD_E2E_ATOL})", flush=True)
+    if band and not bool(torch.isinf(R).any()):
+        fail("soft_dtw: a banded R holds no +inf")
+    if not (err_v <= r_tol and err_r <= r_tol and err_g <= DTW_GRAD_ATOL
+            and err_e2e <= DTW_GRAD_E2E_ATOL):
+        fail(f"soft_dtw kernels disagree with the plain version at {label} "
+             f"band={band}")
+    return max(err_v, err_r), err_g
 
-    # the wrapper refuses what the kernels do not take
+
+def check_soft_dtw_kernels(torch, device) -> tuple[dict, dict]:
+    """Both soft-DTW kernels against the plain recurrences on the card at
+    ``DTW_CASES`` (every bucket, both routes, every copy width), the
+    refusals, then at each ``DTW_TIMED`` shape first against the plain
+    recurrences and then timed beside its bound."""
+    from dualvar_tpu_torch.ops import soft_dtw as mod
+
+    worst_fwd = worst_bwd = 0.0
+    for P, N, M, gamma, band, offset in DTW_CASES:
+        D, g = dtw_inputs(torch, P, N, M, P + N + M, device)
+        errs = check_dtw_case(
+            torch, mod, off_boundary(D, offset), g, gamma, band,
+            f"P={P} N={N} M={M}"
+            + (f" {4 * offset} bytes past 16" if offset else ""))
+        worst_fwd, worst_bwd = max(worst_fwd, errs[0]), max(worst_bwd, errs[1])
+
+    # the wrapper refuses what the kernels do not take; the entry points run
+    # the bucket they are given, and refuse one that does not hold M
     for bad, exc in ((torch.zeros(4, 17, 2, device=device), ValueError),
                      (torch.zeros(4, 2, 2, device=device,
                                   dtype=torch.bfloat16), TypeError)):
@@ -346,22 +512,40 @@ def check_soft_dtw_kernels(torch, device) -> tuple[dict, dict]:
         except exc:
             continue
         fail(f"soft_dtw accepted {tuple(bad.shape)} {bad.dtype}")
+    D, _ = dtw_inputs(torch, 4, 5, 5, 3, device)
+    by_bucket = {}
+    for bucket in (2, 4, 3, 32, 8, 16):
+        R = torch.empty_like(D)
+        values = D.new_empty(4)
+        err = mod._kernel("soft_dtw_fwd_launch", 3)(
+            D.data_ptr(), R.data_ptr(), values.data_ptr(), 4, 5, 5, 0.1, 0.0,
+            bucket, torch.cuda.current_stream().cuda_stream)
+        if (err == 0) != (bucket in (8, 16)):
+            fail(f"soft_dtw_fwd_launch {'took' if err == 0 else 'refused'} "
+                 f"bucket {bucket} for M=5")
+        by_bucket[bucket] = R
+    torch.cuda.synchronize()
+    if not torch.equal(by_bucket[8], by_bucket[16]):
+        fail("soft_dtw_fwd_launch: buckets 8 and 16 disagree at M=5")
     empty = mod.soft_dtw(torch.zeros(0, 2, 2, device=device), 0.1)
     if tuple(empty.shape) != (0,):
         fail("soft_dtw on P=0 did not return an empty result")
 
-    # timing: path M at B=8 and B=32 (K=16384, 2x2), and the largest size.
-    # ``ms`` is the kernel on the device (10 launches replayed from a CUDA
-    # graph: at 2x2 it is over before the host has launched the next one),
-    # ``wrapper_ms`` one eager call of the wrapper as the model makes it.
-    entries = {}
-    for label, (P, N, M) in (("path M, B=8", (131080, 2, 2)),
-                             ("path M, B=32", (524320, 2, 2)),
-                             ("largest size", (524288, 16, 16))):
-        D, g = inputs(P, N, M, seed=7)
+    # ``ms``: the kernel's device time with its data in DRAM, as the bytes
+    # bound assumes (``time_cuda_graph_cold``); ``warm_ms``: the same launch
+    # on the same tensors replayed back to back (in L2 where they fit, as D
+    # is in the step, written just before); ``wrapper_ms``: one eager call
+    # of the wrapper as the model makes it. At 2x2 the rows route is timed
+    # beside the 2x2 route in turns (2x2, rows, rows, 2x2), on copies 8
+    # bytes past a 16-byte boundary, where the rows route takes them.
+    rows = {"soft_dtw_fwd": {}, "soft_dtw_bwd": {}}
+    for label, (P, N, M) in DTW_TIMED:
+        D, g = dtw_inputs(torch, P, N, M, 7, device)
+        errs = check_dtw_case(torch, mod, D, g, 0.1, 0.0,
+                              f"{label} ({P},{N},{M}), timed")
+        worst_fwd, worst_bwd = max(worst_fwd, errs[0]), max(worst_bwd, errs[1])
         _, R = mod.soft_dtw_forward(D, 0.1, 0.0)
-        rows = {}
-        for name, backward, kernel, plain in (
+        for name, backward, wrapper, plain in (
                 ("soft_dtw_fwd", False,
                  lambda: mod.soft_dtw_forward(D, 0.1, 0.0),
                  lambda: mod._softdtw_R_plain(D, 0.1, 0.0)),
@@ -369,27 +553,46 @@ def check_soft_dtw_kernels(torch, device) -> tuple[dict, dict]:
                  lambda: mod.soft_dtw_backward(D, R, g, 0.1, 0.0),
                  lambda: mod._softdtw_E_plain(D, R, 0.1, 0.0)
                  * g[:, None, None])):
+            copies = cold_copies(torch, dtw_bytes(P, N, M, backward))
+            routes = {"ms": 0, "rows_route_ms": 2} if N == M == 2 \
+                else {"ms": 0}
+            launch = {key: dtw_launcher(mod, dtw_copies(
+                          torch, D, R, g, backward, copies, offset), backward)
+                      for key, offset in routes.items()}
+            runs = {key: [] for key in routes}
+            for key in (["ms", "rows_route_ms", "rows_route_ms", "ms"]
+                        if len(routes) == 2 else ["ms"]):
+                runs[key].append(time_cuda_graph_cold(torch, launch[key],
+                                                      copies))
             bound, bound_by = dtw_bound_ms(P, N, M, backward)
-            rows[name] = {
-                "ms": time_cuda_graph(torch, kernel, 10),
-                "wrapper_ms": time_cuda(torch, kernel, 30),
-                "plain_ms": time_cuda(torch, plain, 3, warmup=1),
-                "bound_ms": bound, "bound_by": bound_by}
-            print(f"kernels: {name} timing, {label}, P={P} N={N} M={M}: "
-                  + json.dumps(rows[name]), flush=True)
-        if not entries:
-            entries = rows
+            row = {"shape": [P, N, M], "ms": statistics.mean(runs["ms"]),
+                   "warm_ms": time_cuda_graph(torch, lambda: launch["ms"](0),
+                                              10),
+                   "wrapper_ms": time_cuda(torch, wrapper, 30),
+                   "plain_ms": time_cuda(torch, plain, 3, warmup=1),
+                   "bound_ms": bound, "bound_by": bound_by,
+                   **dtw_bound_parts(P, N, M, backward), "copies": copies}
+            if len(routes) == 2:
+                row["ms_runs"] = runs["ms"]
+                row["rows_route_ms_runs"] = runs["rows_route_ms"]
+            row["share_of_bound"] = bound / row["ms"]
+            rows[name][label] = row
+            print(f"kernels: {name} timing, {label}: " + json.dumps(row),
+                  flush=True)
+            del launch
+        del D, g, R
+        torch.cuda.empty_cache()
     common = {"route": "cuda",
               "source": "dualvar_tpu_torch/csrc/soft_dtw.cu", "launches": 0,
               # no single PyTorch call computes the recurrence
               "library_ms": None}
-    return (
-        {"name": "soft_dtw_fwd",
-         "replaces": "dualvar_tpu/ops/soft_dtw.py:186",
-         "max_abs_err": worst_fwd, **common, **entries["soft_dtw_fwd"]},
-        {"name": "soft_dtw_bwd",
-         "replaces": "dualvar_tpu/ops/soft_dtw.py:204",
-         "max_abs_err": worst_bwd, **common, **entries["soft_dtw_bwd"]})
+    return tuple(
+        {"name": name, "replaces": f"dualvar_tpu/ops/soft_dtw.py:{line}",
+         "max_abs_err": err, **common, **rows[name]["path M, B=8"],
+         # the path that makes the kernels work: n_series 16
+         "path_m16": rows[name]["path M16, B=8"], "by_shape": rows[name]}
+        for name, line, err in (("soft_dtw_fwd", 186, worst_fwd),
+                                ("soft_dtw_bwd", 204, worst_bwd)))
 
 
 def sums_bound_ms(numel: int, C: int, elem_bytes: int,
@@ -680,7 +883,7 @@ def smoke_cfg(preset: str, batch_size: int, log_root: str,
         run=dataclasses.replace(
             cfg.run, print_freq=1, log_root=log_root,
             name_prefix=f"chip_smoke_{model.model}_{model.net}_{mode}"
-                        f"_b{batch_size}"))
+                        f"_s{model.n_series}_b{batch_size}"))
 
 
 def path_r_cfg(batch_size: int, log_root: str):
@@ -788,33 +991,32 @@ def initial_state(torch, cfg) -> dict:
     return task.model.state_dict()
 
 
-def run_path_m(torch, log_root: str) -> tuple[dict, dict]:
-    """Path M: MoCo TimeSeriesV4 at K=16384 in mode clip-sr-dtw. A step
-    calls the soft-DTW function twice (each query against its key, B pairs,
-    and against the whole queue, B*K pairs), so both kernels launch twice a
-    step."""
-    cfg = smoke_cfg(MOCO_PRESET, 8, log_root, mode="clip-sr-dtw")
-    state, launches = run_path(
-        torch, "path M", cfg, TRAIN_STEPS,
-        expected_launches(aug_fused=TRAIN_STEPS,
-                          soft_dtw_fwd=2 * TRAIN_STEPS,
-                          soft_dtw_bwd=2 * TRAIN_STEPS), TSV4_LOSSES)
+def check_moco_state(torch, label: str, cfg, state: dict,
+                     steps: int) -> None:
+    """What ``steps`` MoCo steps at B=8 must leave: the queue pointer at 8 x
+    steps, rows 0.. of both queues written and unit-norm per segment (the
+    series queue has ``n_series`` segments of ``series_dim``), the rest
+    untouched, the key encoder moved by its momentum update and its batch
+    norms by its own forwards."""
     init = initial_state(torch, cfg)
-    written = 8 * TRAIN_STEPS
+    written = cfg.optim.batch_size * steps
     if int(state["queue_ptr"]) != written:
-        fail(f"path M: queue_ptr {int(state['queue_ptr'])} != {written}")
+        fail(f"{label}: queue_ptr {int(state['queue_ptr'])} != {written}")
     m = cfg.model
     for name, seg_dim in (("queue", m.moco_dim),
                           ("series_queue", m.series_dim)):
         new, old = state[name], init[name]
         if not torch.equal(new[written:], old[written:]):
-            fail(f"path M: rows {written}.. of {name} changed")
+            fail(f"{label}: rows {written}.. of {name} changed")
         if bool((new[:written] == old[:written]).all(dim=1).any()):
-            fail(f"path M: a row 0..{written - 1} of {name} was not written")
+            fail(f"{label}: a row 0..{written - 1} of {name} was not written")
         norms = new[:written].reshape(written, -1, seg_dim).norm(dim=-1)
         if float((norms - 1).abs().max()) > 1e-4:
-            fail(f"path M: written rows of {name} are not unit-norm per "
+            fail(f"{label}: written rows of {name} are not unit-norm per "
                  "segment")
+    if state["series_queue"].shape[1] != m.n_series * m.series_dim:
+        fail(f"{label}: series_queue is {tuple(state['series_queue'].shape)}"
+             f", not {m.n_series} segments of {m.series_dim}")
     moved = differs = False
     for key in (k for k in state if k.startswith("encoder_k.")
                 and "running_" not in k):
@@ -822,16 +1024,31 @@ def run_path_m(torch, log_root: str) -> tuple[dict, dict]:
         differs |= not torch.equal(state[key],
                                    state["encoder_q." + key[10:]])
     if not (moved and differs):
-        fail("path M: the key encoder did not move by its momentum update, "
+        fail(f"{label}: the key encoder did not move by its momentum update, "
              "or equals the query encoder")
     k_mean = state["encoder_k.backbone.bn1.running_mean"]
     if float(k_mean.abs().max()) == 0.0 or torch.equal(
             k_mean, state["encoder_q.backbone.bn1.running_mean"]):
-        fail("path M: the key encoder's BN running statistics did not move "
+        fail(f"{label}: the key encoder's BN running statistics did not move "
              "from its own forwards")
-    print(f"path M: queue_ptr={written}, rows 0..{written - 1} of both "
-          "queues written and unit-norm, the rest untouched; key encoder "
-          "moved", flush=True)
+    print(f"{label}: queue_ptr={written}, rows 0..{written - 1} of both "
+          f"queues written and unit-norm ({m.n_series} segments of the "
+          "series queue), the rest untouched; key encoder moved", flush=True)
+
+
+def run_path_m(torch, log_root: str, label: str = "path M",
+               **model_kw) -> tuple[dict, dict]:
+    """Path M: MoCo TimeSeriesV4 at K=16384 in mode clip-sr-dtw. A step
+    calls the soft-DTW function twice (each query against its key, B pairs,
+    and against the whole queue, B*K pairs), so both kernels launch twice a
+    step. ``n_series=16`` gives path M16: pairs of 16x16 segments."""
+    cfg = smoke_cfg(MOCO_PRESET, 8, log_root, mode="clip-sr-dtw", **model_kw)
+    state, launches = run_path(
+        torch, label, cfg, TRAIN_STEPS,
+        expected_launches(aug_fused=TRAIN_STEPS,
+                          soft_dtw_fwd=2 * TRAIN_STEPS,
+                          soft_dtw_bwd=2 * TRAIN_STEPS), TSV4_LOSSES)
+    check_moco_state(torch, label, cfg, state, TRAIN_STEPS)
     return state, launches
 
 
@@ -1017,7 +1234,8 @@ def time_train_steps(torch, cfg, n: int = 10) -> None:
         "preset": cfg.run.prefix, "net": cfg.model.net,
         "model": cfg.model.model, "mode": cfg.model.mode,
         "bn_stats": os.environ.get("DUALVAR_BN_STATS", "aten"),
-        "batch_size": batch_size, "steps": n, "dtype": cfg.model.dtype,
+        "n_series": cfg.model.n_series, "batch_size": batch_size,
+        "steps": n, "dtype": cfg.model.dtype,
         "ms_per_step": ms, "clips_per_s": batch_size / ms * 1e3,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }), flush=True)
@@ -1088,7 +1306,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
-    from dualvar_tpu_torch.ops.build import BUILD_DIR, load_library
+    from dualvar_tpu_torch.ops.build import load_library, ptxas_log_path
 
     smi = device_line()
     kind = torch.cuda.get_device_name(0)
@@ -1115,10 +1333,12 @@ def main() -> int:
     print(f"build: {', '.join(names)} in {time.perf_counter() - tic:.1f} s "
           "side by side; each: " + json.dumps(took), flush=True)
     for name in names:
-        with open(os.path.join(BUILD_DIR, f"{name}.ptxas.log")) as fh:
+        with open(ptxas_log_path(name)) as fh:
             print(f"build: ptxas {name}: " + " | ".join(
                 line.strip() for line in fh
                 if "registers" in line or "spill" in line), flush=True)
+
+    check_soft_dtw_ptxas()
 
     device = torch.device("cuda")
     kernels = [check_aug_kernel(torch, device),
@@ -1134,6 +1354,8 @@ def main() -> int:
         state, by_path = run_main_path(torch, log_root)
         by_path = {"paper_table1_k400": by_path}
         moco_state, by_path["path M"] = run_path_m(torch, log_root)
+        _, by_path["path M16"] = run_path_m(torch, log_root, "path M16",
+                                            n_series=16)
         by_path["path S"] = run_path_s(torch, log_root)
         r_state, by_path["path R"], by_path["path R, ATen batch norm"] = \
             run_path_r(torch, log_root)
@@ -1145,6 +1367,9 @@ def main() -> int:
                 else "path R"
             kernel["launches"] = by_path[home][kernel["name"]]
             kernel["launches_path"] = home
+            if "path_m16" in kernel:
+                kernel["path_m16"]["launches"] = \
+                    by_path["path M16"][kernel["name"]]
             kernel["launches_by_path"] = {
                 path: counts[kernel["name"]]
                 for path, counts in by_path.items()}
@@ -1157,6 +1382,13 @@ def main() -> int:
             for mode in ("clip-sr-tc", "clip-sr-dtw"):
                 time_train_steps(torch, smoke_cfg(
                     MOCO_PRESET, batch_size, log_root, mode=mode))
+        # path M16: the two modes' difference is soft-DTW at 16x16 and its
+        # cost tensor
+        for batch_size in (8, 32):
+            for mode in ("clip-sr-tc", "clip-sr-dtw"):
+                time_train_steps(torch, smoke_cfg(
+                    MOCO_PRESET, batch_size, log_root, mode=mode,
+                    n_series=16))
         time_path_r(torch, log_root)
         check_f32_forward(torch, "paper_table1_k400",
                           smoke_cfg("paper_table1_k400", 2, log_root), state)

@@ -4,7 +4,9 @@ Each kernel is one ``csrc/<name>.cu`` with a plain C interface (it may
 include headers ``csrc/*.cuh``). It is compiled at first use with ``nvcc``
 for sm_90a into a shared library under ``build/kernels/`` beside the package
 (an ignored directory) and loaded with ``ctypes``: seconds to build, no
-PyTorch headers. A failed build raises.
+PyTorch headers. A failed build raises. ptxas's report of the build
+(registers, stack frame, spills of every kernel) is kept beside the library
+as ``<library>.ptxas.log``.
 """
 
 from __future__ import annotations
@@ -43,13 +45,18 @@ def _flags(name: str) -> tuple[str, ...]:
     return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
 
 
-def library_path(name: str) -> str:
-    """Where the library of ``csrc/<name>.cu`` lives: its file name carries a
+def _source(name: str, source: str | None) -> str:
+    return source or os.path.join(CSRC_DIR, f"{name}.cu")
+
+
+def library_path(name: str, source: str | None = None) -> str:
+    """Where the library of ``csrc/<name>.cu`` (or of ``source``, another
+    file built with kernel ``name``'s flags) lives: its file name carries a
     hash of the source, of every ``csrc/*.cuh`` header and of the nvcc
     flags, so an edited source or header, or new flags, give a new library
     and a stale one is never loaded."""
     digest = hashlib.sha1()
-    for path in [os.path.join(CSRC_DIR, f"{name}.cu"),
+    for path in [_source(name, source),
                  *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
         with open(path, "rb") as fh:
             digest.update(os.path.basename(path).encode() + b"\0"
@@ -58,12 +65,20 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
+def ptxas_log_path(name: str, source: str | None = None) -> str:
+    """ptxas's report of the build of ``library_path(name, source)``."""
+    return library_path(name, source) + ".ptxas.log"
+
+
 @functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is missing, and load it."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    lib = library_path(name)
-    if not os.path.exists(lib):
+def load_library(name: str, source: str | None = None) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` (or ``source`` with kernel ``name``'s
+    flags) if its library or the library's ptxas log is missing, and load
+    it."""
+    src = _source(name, source)
+    lib = library_path(name, source)
+    log = ptxas_log_path(name, source)
+    if not (os.path.exists(lib) and os.path.exists(log)):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
         proc = subprocess.run(
@@ -73,7 +88,7 @@ def load_library(name: str) -> ctypes.CDLL:
             raise RuntimeError(
                 f"nvcc failed on {src} (exit {proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}")
-        with open(os.path.join(BUILD_DIR, f"{name}.ptxas.log"), "w") as fh:
+        with open(log, "w") as fh:
             fh.write(proc.stderr)
         os.replace(tmp, lib)  # atomic: a concurrent process loads a whole file
     return ctypes.CDLL(lib)

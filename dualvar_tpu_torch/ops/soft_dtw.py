@@ -2,9 +2,10 @@
 
 Replaces the Pallas kernels ``dualvar_tpu/ops/soft_dtw.py:_fwd_kernel`` and
 ``:_bwd_kernel`` with the hand-written CUDA kernels of ``csrc/soft_dtw.cu``
-(one thread per pair, see the source for the design). Same contract as the
-JAX ``soft_dtw``: for a batch of cost matrices ``D (P, N, M)`` the soft
-minimum over monotone alignment paths,
+(one thread a pair, rows in registers, instantiated for the column bucket
+that ``_column_bucket`` chooses; see the source for the design). Same
+contract as the JAX ``soft_dtw``: for a batch of cost matrices
+``D (P, N, M)`` the soft minimum over monotone alignment paths,
 
     R[i,j] = D[i-1,j-1] + softmin_gamma(R[i-1,j-1], R[i-1,j], R[i,j-1]),
 
@@ -19,7 +20,7 @@ constant and never stored. N, M <= 16 on the card.
 
 Bound: bytes. A pair moves ``4*N*M`` bytes in and ``4*N*M + 4`` out in the
 forward, ``8*N*M + 4`` in and ``4*N*M`` out in the backward, against 3 exp +
-1 log (forward) or 3 exp (backward) a cell.
+1 log (forward) or 3 exp (backward) a cell on the special-function units.
 
 ``soft_dtw_forward`` and ``soft_dtw_backward`` launch their kernel for CUDA
 tensors (or raise) and take the plain recurrences only for CPU tensors; each
@@ -39,6 +40,7 @@ import torch
 from .build import load_library
 
 _MAX_LEN = 16  # kMaxLen of csrc/soft_dtw.cu
+_BUCKETS = (2, 4, 8, 16)  # the kernels' instantiations, by columns
 _INF = float("inf")
 
 
@@ -161,14 +163,25 @@ def _check(D: torch.Tensor, gamma: float, **others: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _column_bucket(M: int) -> int:
+    """The kernels' instantiation for rows of M columns: the smallest of
+    2, 4, 8, 16 that holds M. The C entry points run the bucket they are
+    given; they only refuse one that does not hold M."""
+    if not 1 <= M <= _MAX_LEN:
+        raise ValueError(f"no soft-DTW kernel takes {M} columns "
+                         f"(1 to {_MAX_LEN})")
+    return next(b for b in _BUCKETS if b >= M)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str, n_pointers: int):
     """The library's launch function ``name`` (``n_pointers`` device pointers,
-    then P, N, M, gamma, bandwidth, stream), with its C signature declared."""
+    then P, N, M, gamma, bandwidth, the column bucket, stream), with its C
+    signature declared."""
     fn = getattr(load_library("soft_dtw"), name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -179,7 +192,8 @@ def _launch(name: str, tensors: tuple, shape, gamma: float,
     with torch.cuda.device(tensors[0].device):
         err = _kernel(name, len(tensors))(
             *(t.data_ptr() for t in tensors), *shape, float(gamma),
-            float(bandwidth), torch.cuda.current_stream().cuda_stream)
+            float(bandwidth), _column_bucket(shape[2]),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 

@@ -131,3 +131,27 @@ def test_library_name_covers_source_headers_and_flags(tmp_path, monkeypatch):
     assert build.library_path("k") not in (first, second, third)
     monkeypatch.setattr(build, "KERNEL_FLAGS", {"other": ("-DEXTRA",)})
     assert build.library_path("k") == third
+
+
+def test_other_source_and_ptxas_log_are_keyed_like_the_library(
+        tmp_path, monkeypatch):
+    """Another source built with a kernel's flags gets a library of its
+    own, and the kernel's own source given by path gets the kernel's; each
+    library's ptxas log lies beside it and carries its hash, so a cached
+    library is never described by the log of another build. No nvcc
+    needed."""
+    from dualvar_tpu_torch.ops import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "kernels"))
+    (csrc / "k.cu").write_text("// the kernel\n")
+    other = tmp_path / "other.cu"
+    other.write_text("// a variant\n")
+    lib = build.library_path("k")
+    assert build.library_path("k", str(csrc / "k.cu")) == lib
+    assert build.library_path("k", str(other)) != lib
+    assert build.ptxas_log_path("k") == lib + ".ptxas.log"
+    assert build.ptxas_log_path("k", str(other)) == \
+        build.library_path("k", str(other)) + ".ptxas.log"
