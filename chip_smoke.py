@@ -38,18 +38,28 @@ Phases, each fatal on failure (non-zero exit):
      ``conv3d_bn_stats`` on the input of path R's ``layer1_block0.conv2``
      against that layer's output and the batch statistics its ``bn2`` used;
    - the presets ``smoke``, ``smoke_dualvar`` and ``smoke_moco``, one step;
+   - path C: the downstream classifier, preset ``paper_table1_ucf_ft``
+     (R(2+1)D-18, 101 classes, B=4) grafted from the main path's
+     checkpoint: the graft's report, a finetune run with validation, a
+     linear-probe run (backbone bitwise unchanged), one pass of each test
+     protocol (center, five and ten crop, temporal ten-clip, retrieval)
+     from the finetuned checkpoint; ``aug_fused`` with blur off at N=4 and
+     N=32 against its plain version and timed out of L2;
    then step times at B=8 and B=32 (MoCo in ``clip-sr-tc`` and
    ``clip-sr-dtw``, at n_series 2 and 16: the difference is what soft-DTW
-   and its cost tensor take), and of path R at B=8, 32 and 128 with the
-   variable on and off;
+   and its cost tensor take), of path R at B=8, 32 and 128 with the
+   variable on and off, and of the classifier's finetune step at B=4 (the
+   median of five 20-step windows, with each window's time) and 32;
 5. on-card float32 checks: one train-mode forward with TF32 off against the
    same forward on the CPU from the same weights and block, for the SimCLR
    model, for MoCo in mode ``clip-sr-dtw`` (where the CPU side runs the
    plain soft-DTW, so the kernels are also held against it inside the model)
-   and for path R with the variable on (the CPU side takes the plain sums).
+   for path R with the variable on (the CPU side takes the plain sums), and
+   for the finetuned classifier.
 
-The last three lines of standard output are one JSON object describing every
-kernel (``{"kernels": [...]}``), the card's name and power limit, and
+The last lines of standard output are the script's wall time, one JSON
+object describing every kernel (``{"kernels": [...]}``), the card's name and
+power limit, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device the script fails; it never carries on on the CPU. It
 imports nothing of JAX. Logs and checkpoints of the run go under ``build/``
@@ -82,6 +92,14 @@ SPECIAL_OPS_PER_S = 16 * 132 * 1.98e9
 TRAIN_STEPS = 4
 PATH_S_STEPS = 2
 MOCO_PRESET = "paper_table2_moco_r21d"
+# path C: the downstream classifier, finetuned and probed from the main
+# path's checkpoint
+CLASSIFIER_PRESET = "paper_table1_ucf_ft"
+PROBE_STEPS = 2
+CLASSIFIER_METRICS = ("loss", "top1", "val_top1")
+# float32 classifier forward, card against CPU (TF32 off): the JAX suite's
+# band for a backbone forward against its torch oracle (ROADMAP.md)
+CLF_F32_ATOL = 2e-4
 # soft-DTW kernels against the plain recurrences, float32 on the card: atol
 # 1e-6 plus rtol 1e-5 of the largest finite |R| of the batch (about 20 at
 # 16x16, one ulp 2e-6). Not bitwise: expf / logf of the CUDA math library
@@ -928,37 +946,62 @@ def expected_launches(**counts) -> dict:
     return {name: counts.get(name, 0) for name in kernel_counters()}
 
 
-def run_path(torch, label: str, cfg, steps: int, want_launches: dict,
-             loss_keys: tuple) -> tuple[dict, dict]:
-    """train() for ``steps`` steps at B=8 with every launch count set to 0
-    just before and read just after; returns the checkpoint's state_dict and
-    the counts of exactly that run."""
-    from dualvar_tpu_torch.train.pretrain import set_path, train
+def is_classifier(cfg) -> bool:
+    from dualvar_tpu_torch.core.config import ClassifierConfig
 
+    return isinstance(cfg, ClassifierConfig)
+
+
+def trainer_of(cfg):
+    """The trainer module that runs ``cfg``: the classifier's for a
+    ``ClassifierConfig``, else pretrain's."""
+    from dualvar_tpu_torch.train import classifier, pretrain
+
+    return classifier if is_classifier(cfg) else pretrain
+
+
+def describe(cfg) -> str:
+    """How the printed lines name a run's configuration."""
+    if is_classifier(cfg):
+        return f"{CLASSIFIER_PRESET} train_what={cfg.train_what}"
+    return f"{cfg.run.prefix} mode {cfg.model.mode}"
+
+
+def run_path(torch, label: str, cfg, steps: int, want_launches: dict,
+             metric_keys: tuple) -> tuple[dict, dict]:
+    """train() of ``cfg``'s trainer for ``steps`` steps with every launch
+    count set to 0 just before and read just after; returns the state_dict
+    of the newest checkpoint it saved and the counts of exactly that run.
+    ``metric_keys`` must come back finite (and pretrain's ``total_loss``)."""
+    from dualvar_tpu_torch.core.checkpoint import checkpoint_file
+
+    trainer = trainer_of(cfg)
     counters = kernel_counters()
     for wrapper in counters.values():
         wrapper.launches = 0
-    metrics = train(cfg, max_steps=steps, device="cuda")
+    metrics = trainer.train(cfg, max_steps=steps, device="cuda")
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in counters.items()}
-    for key in loss_keys + ("total_loss",):
+    if not is_classifier(cfg):
+        metric_keys += ("total_loss",)
+    for key in metric_keys:
         if key not in metrics or not math.isfinite(metrics[key]):
             fail(f"{label}: {key} missing or not finite: {metrics}")
     if launches != want_launches:
         fail(f"{label}: launches {launches} in {steps} train steps, "
              f"expected {want_launches}")
-    ckpt = torch.load(os.path.join(set_path(cfg), "model", "epoch0.pth.tar"),
-                      map_location="cpu")
+    ckpt = torch.load(
+        checkpoint_file(os.path.join(trainer.set_path(cfg), "model")),
+        map_location="cpu")
     if ckpt["iteration"] != steps:
         fail(f"{label}: checkpoint iteration {ckpt['iteration']} != {steps}")
     state = ckpt["state_dict"]
     for key, val in state.items():
         if not torch.isfinite(val).all():
             fail(f"{label}: {key} is not finite after training")
-    print(f"{label}: {steps} steps of {cfg.run.prefix} mode "
-          f"{cfg.model.mode} at B={cfg.optim.batch_size}, launches="
-          + json.dumps(launches) + ", metrics=" + json.dumps(metrics),
-          flush=True)
+    print(f"{label}: {steps} steps of {describe(cfg)} at "
+          f"B={cfg.optim.batch_size}, launches=" + json.dumps(launches)
+          + ", metrics=" + json.dumps(metrics), flush=True)
     return state, launches
 
 
@@ -1204,39 +1247,53 @@ def time_path_r(torch, log_root: str) -> None:
         torch.cuda.empty_cache()
 
 
-def time_train_steps(torch, cfg, n: int = 10) -> None:
-    """Step time of the same step train() runs, on one device-resident
-    batch (loading excluded), bf16 autocast as the preset asks, over ``n``
-    steps after 3 warm-up steps."""
-    from dualvar_tpu_torch.train.pretrain import setup_training
-
+def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
+    """Step time of the same step train() runs for ``cfg`` (pretrain or the
+    classifier), on one device-resident batch (loading excluded), bf16
+    autocast as the preset asks: ``windows`` host-clock windows of ``n``
+    steps after 3 warm-up steps, the median window's ms per step and every
+    window's, with peak device memory."""
+    classifier = is_classifier(cfg)
     batch_size = cfg.optim.batch_size
-    setup = setup_training(cfg, "cuda")
+    setup = trainer_of(cfg).setup_training(cfg, "cuda")
     with setup.loader as loader:
-        frames = torch.from_numpy(next(loader.epoch(0))["frames"]).to("cuda")
+        batch = next(loader.epoch(0))
+    inputs = [torch.from_numpy(batch[key]).to("cuda")
+              for key in (("frames", "label") if classifier else ("frames",))]
     for _ in range(3):
-        setup.train_step(frames, setup.generator)
+        setup.train_step(*inputs, setup.generator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tic = time.perf_counter()
-    for _ in range(n):
-        metrics = setup.train_step(frames, setup.generator)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - tic) / n * 1e3
-    if not math.isfinite(float(metrics["total_loss"])):
-        fail(f"timed steps at B={batch_size}: total loss not finite")
+    window_ms = []
+    for _ in range(windows):
+        tic = time.perf_counter()
+        for _ in range(n):
+            metrics = setup.train_step(*inputs, setup.generator)
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - tic) / n * 1e3)
+    ms = statistics.median(window_ms)
+    loss = "loss" if classifier else "total_loss"
+    if not math.isfinite(float(metrics[loss])):
+        fail(f"timed steps of {describe(cfg)} at B={batch_size}: {loss} not "
+             "finite")
     key_encoder = getattr(setup.model, "encoder_k", None)
     if key_encoder is not None and any(
             p.grad is not None or p.requires_grad
             for p in key_encoder.parameters()):
         fail("timed steps: a key-encoder parameter has a gradient")
+    if classifier:
+        what = {"preset": CLASSIFIER_PRESET, "net": cfg.model.net,
+                "train_what": cfg.train_what}
+    else:
+        what = {"preset": cfg.run.prefix, "net": cfg.model.net,
+                "model": cfg.model.model, "mode": cfg.model.mode,
+                "bn_stats": os.environ.get("DUALVAR_BN_STATS", "aten"),
+                "n_series": cfg.model.n_series}
     print("step time: " + json.dumps({
-        "preset": cfg.run.prefix, "net": cfg.model.net,
-        "model": cfg.model.model, "mode": cfg.model.mode,
-        "bn_stats": os.environ.get("DUALVAR_BN_STATS", "aten"),
-        "n_series": cfg.model.n_series, "batch_size": batch_size,
-        "steps": n, "dtype": cfg.model.dtype,
+        **what, "batch_size": batch_size, "steps": n, "windows": windows,
+        "dtype": cfg.model.dtype,
         "ms_per_step": ms, "clips_per_s": batch_size / ms * 1e3,
+        "window_ms_per_step": window_ms,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }), flush=True)
     del setup
@@ -1301,12 +1358,252 @@ def check_f32_forward(torch, label: str, cfg, state: dict) -> None:
         fail(f"f32 check, {label}: card and CPU forwards disagree")
 
 
+# --------------------------------------------------------------------------
+# path C: the downstream classifier
+# --------------------------------------------------------------------------
+
+def path_c_cfg(log_root: str, batch_size: int = 4, train_what: str = "ft",
+               pretrain: str = "", resume: str = "", videos: int = 8):
+    """``--preset paper_table1_ucf_ft`` at full width (R(2+1)D-18, 101
+    classes, 16x112x112 clips at ds 2, bf16 autocast, the preset's SGD) on
+    ``videos`` synthetic videos."""
+    from dualvar_tpu_torch.core.config import CLASSIFIER_PRESETS
+
+    cfg = CLASSIFIER_PRESETS[CLASSIFIER_PRESET]
+    return dataclasses.replace(
+        cfg, train_what=train_what,
+        data=dataclasses.replace(cfg.data, synthetic=True,
+                                 synthetic_videos=videos),
+        optim=dataclasses.replace(cfg.optim, batch_size=batch_size),
+        run=dataclasses.replace(
+            cfg.run, print_freq=1, log_root=log_root, pretrain=pretrain,
+            resume=resume,
+            name_prefix=f"chip_smoke_{train_what}_b{batch_size}"))
+
+
+def check_graft(torch, cfg) -> dict:
+    """The graft of the pretrain checkpoint ``cfg.run.pretrain`` into a fresh
+    classifier: every ``backbone.*`` entry loaded from the checkpoint's
+    backbone, nothing unused, ``final_fc`` kept at its init. Returns the
+    grafted state_dict."""
+    from dualvar_tpu_torch.core.checkpoint import (load_pretrained_backbone,
+                                                   load_state_dict,
+                                                   pretrain_backbone)
+    from dualvar_tpu_torch.train.classifier import build_model
+
+    fresh = build_model(cfg, cfg.run.seed).state_dict()
+    pretrained = load_state_dict(cfg.run.pretrain)
+    source = pretrain_backbone(pretrained)
+    state, report = load_pretrained_backbone(fresh, pretrained)
+    backbone = [k for k in fresh if k.startswith("backbone.")]
+    if (sorted(report["loaded"]) != sorted(backbone)
+            or report["missing_in_src"] or report["unused_src"]):
+        fail(f"path C graft: {len(report['loaded'])} of {len(backbone)} "
+             f"backbone entries loaded, missing {report['missing_in_src'][:4]}"
+             f", unused {report['unused_src'][:4]}")
+    for key in backbone:
+        if not torch.equal(state[key], source[key[len("backbone."):]]):
+            fail(f"path C graft: {key} is not the checkpoint's")
+    for key in (k for k in fresh if not k.startswith("backbone.")):
+        if not torch.equal(state[key], fresh[key]):
+            fail(f"path C graft: {key} did not keep its init")
+    print(f"path C graft: {len(backbone)} backbone entries loaded from "
+          f"{cfg.run.pretrain}, final_fc kept at init", flush=True)
+    return state
+
+
+def run_path_c(torch, log_root: str, pretrain: str) -> tuple[dict, dict]:
+    """Path C: graft, finetune, probe and the five test protocols. Returns
+    the finetuned state_dict and the launch counts by run."""
+    from dualvar_tpu_torch.train import classifier as clf
+
+    cfg = path_c_cfg(log_root, pretrain=pretrain)
+    grafted = check_graft(torch, cfg)
+    by_run = {}
+    ft, by_run["path C"] = run_path(
+        torch, "path C finetune", cfg, TRAIN_STEPS,
+        expected_launches(aug_fused=TRAIN_STEPS), CLASSIFIER_METRICS)
+    if all(torch.equal(ft[k], grafted[k]) for k in grafted
+           if k.startswith("backbone.") and "running_" not in k):
+        fail("path C finetune: the backbone did not move")
+
+    probe_cfg = path_c_cfg(log_root, train_what="last", pretrain=pretrain)
+    probe, by_run["path C, probe"] = run_path(
+        torch, "path C probe", probe_cfg, PROBE_STEPS,
+        expected_launches(aug_fused=PROBE_STEPS), CLASSIFIER_METRICS)
+    for key in (k for k in grafted if k.startswith("backbone.")):
+        if not torch.equal(probe[key], grafted[key]):
+            fail(f"path C probe: {key} changed; the probe must leave every "
+                 "backbone weight and running statistic as grafted")
+    if torch.equal(probe["final_fc.weight"], grafted["final_fc.weight"]):
+        fail("path C probe: final_fc did not move")
+    print("path C probe: every backbone weight and running statistic "
+          "bitwise unchanged, final_fc moved", flush=True)
+
+    # the protocols read the finetuned checkpoint; batch 16 (the batch of
+    # an eval pass changes no result)
+    test_cfg = path_c_cfg(log_root, batch_size=16,
+                          resume=os.path.join(clf.set_path(cfg), "model"))
+    counters = kernel_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    protocols = (
+        ("center", lambda: clf.test_multicrop(test_cfg, "center")),
+        ("five", lambda: clf.test_multicrop(test_cfg, "five")),
+        ("ten", lambda: clf.test_multicrop(test_cfg, "ten")),
+        ("temporal_ten_clip", lambda: clf.test_temporal_tenclip(test_cfg)),
+        ("retrieval", lambda: clf.test_retrieval(test_cfg)))
+    for name, run in protocols:
+        tic = time.perf_counter()
+        out = run()
+        took = time.perf_counter() - tic
+        values = {k: v for k, v in out.items() if k != "classwise"}
+        if not values or not all(
+                math.isfinite(v) and 0.0 <= v <= 1.0 for v in values.values()):
+            fail(f"path C protocol {name}: {out}")
+        print(f"path C protocol {name}: {took:.2f} s, " + json.dumps(values),
+              flush=True)
+    launches = {n: w.launches for n, w in counters.items()}
+    if launches != expected_launches():
+        fail(f"path C protocols launched kernels: {launches}")
+    by_run["path C, protocols"] = launches
+    return ft, by_run
+
+
+def classifier_aug_inputs(torch, n: int, seed: int, device):
+    """The classifier train batch's inputs at full size: uint8 frames
+    (n, 16, 171, 128, 3) and decisions with both window extremes, every
+    other clip flipped, one clip with identity factors."""
+    import itertools
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (n, 16, 171, 128, 3), dtype=np.uint8)
+    crops = np.stack([rng.integers(0, 171 - 112 + 1, n),
+                      rng.integers(0, 128 - 112 + 1, n)], axis=-1)
+    crops[0], crops[-1] = (0, 0), (171 - 112, 128 - 112)
+    flips = np.arange(n) % 2 == 1
+    perms = list(itertools.permutations(range(4)))
+    orders = np.array([perms[(i * 7) % 24] for i in range(n)], np.int32)
+    factors = rng.uniform(0.2, 1.8, (n, 4)).astype(np.float32)
+    factors[:, 3] = rng.uniform(-0.2, 0.2, n)
+    factors[1] = (1.0, 1.0, 1.0, 0.0)  # jitter not applied
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (frames, crops, flips, orders, factors))
+
+
+def check_aug_classifier_shapes(torch, device) -> dict:
+    """``aug_fused`` on the classifier's launches: blur off for every clip,
+    the flip folded into the uint8 gather, N = 4 (the preset's B) and 32.
+    The train batch through the kernel against the same batch through the
+    plain version (float32 out at ``F32_ATOL``, bfloat16 at ``BF16_ATOL``),
+    then the kernel timed with its data out of L2 and in L2 against
+    ``aug_bound_ms``."""
+    from dualvar_tpu_torch.aug.pipeline import (AugConfig, _crop_planar,
+                                                classifier_train_batch_fused)
+    from dualvar_tpu_torch.ops import aug_fused as mod
+
+    rows = {}
+    for n in (4, 32):
+        frames, crops, flips, orders, factors = classifier_aug_inputs(
+            torch, n, 20 + n, device)
+        errs = {}
+        for out_dtype, atol in (("float32", F32_ATOL),
+                                ("bfloat16", BF16_ATOL)):
+            cfg = AugConfig(out_dtype=out_dtype)
+            got, want = (classifier_train_batch_fused(
+                None, frames, cfg, crops=crops, flips=flips, orders=orders,
+                factors=factors, kernel=kernel) for kernel in (True, False))
+            torch.cuda.synchronize()
+            if got.dtype != getattr(torch, out_dtype):
+                fail(f"aug_fused classifier N={n}: {got.dtype} out")
+            errs[out_dtype] = float((got.float() - want.float()).abs().max())
+            if not errs[out_dtype] <= atol:
+                fail(f"aug_fused classifier N={n} {out_dtype}: max abs err "
+                     f"{errs[out_dtype]} > {atol}")
+        # the kernel's own inputs: the flipped crops and blur (1, 0)
+        planar = _crop_planar(frames, crops, 16, 112, flips=flips)
+        blur = torch.tensor([[1.0, 0.0]], device=device).repeat(n, 1)
+        bound, bound_by = aug_bound_ms(torch, planar, blur, torch.float32)
+        nbytes = planar.numel() * (1 + 4)
+        copies = cold_copies(torch, nbytes)
+        sets = [(planar.clone(), orders.clone(), factors.clone(),
+                 blur.clone()) for _ in range(copies)]
+        outs = []  # every launch keeps its own output
+
+        def launch(c):
+            outs.append(mod._launch(*sets[c], torch.float32, True))
+
+        cold_ms = time_cuda_graph_cold(torch, launch, copies)
+        outs.clear()
+        warm_ms = time_cuda_graph(torch, lambda: mod._launch(
+            planar, orders, factors, blur, torch.float32, True), 10)
+        plain_ms = time_cuda(torch, lambda: mod.aug_fused_plain(
+            planar, orders, factors, blur), 5, warmup=1)
+        rows[f"N={n}"] = {
+            "ms": cold_ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "bound_share": bound / cold_ms, "max_abs_err": errs["float32"],
+            "bf16_max_abs_err": errs["bfloat16"]}
+        print(f"kernels: aug_fused classifier batch N={n} T=16 S=112, blur "
+              "off, flips folded in: " + json.dumps(rows[f"N={n}"]),
+              flush=True)
+        del sets, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_f32_classifier(torch, cfg, state: dict) -> None:
+    """One train-mode float32 forward of the finetuned classifier on the
+    card, TF32 off, against the CPU from the same state_dict and clips:
+    logits, pooled features and the loss within ``CLF_F32_ATOL``."""
+    from dualvar_tpu_torch.aug.pipeline import (AugConfig,
+                                                classifier_train_batch)
+    from dualvar_tpu_torch.data.loader import HostLoader
+    from dualvar_tpu_torch.models.ssl.losses import cross_entropy_from_logits
+    from dualvar_tpu_torch.train.classifier import (build_model,
+                                                    classifier_dataset)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with HostLoader(classifier_dataset(cfg, "train"), 2, seed=1,
+                    num_workers=2) as loader:
+        batch = next(loader.epoch(0))
+    clips = classifier_train_batch(
+        torch.Generator().manual_seed(3),
+        torch.from_numpy(batch["frames"]).to("cuda"),
+        AugConfig(img_dim=cfg.data.img_dim, seq_len=cfg.data.seq_len,
+                  rand_flip=True))
+    labels = torch.from_numpy(batch["label"]).long()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg)
+        model.load_state_dict(state)
+        model.to(dev).train()
+        with torch.no_grad():
+            logit, feat = model(clips.to(dev))
+            loss = cross_entropy_from_logits(logit, labels.to(dev))
+        outs[dev] = [t.float().cpu() for t in (logit, feat, loss)]
+    errs = [float((a - b).abs().max()) for a, b in zip(outs["cuda"],
+                                                        outs["cpu"])]
+    print(f"f32 check, path C: card vs CPU, TF32 off: max logit err "
+          f"{errs[0]:.3e}, max feature err {errs[1]:.3e}, loss err "
+          f"{errs[2]:.3e} (atol {CLF_F32_ATOL})", flush=True)
+    if not all(torch.isfinite(t).all() for t in outs["cuda"]):
+        fail("f32 check, path C: the card's forward is not finite")
+    if not max(errs) <= CLF_F32_ATOL:
+        fail("f32 check, path C: card and CPU forwards disagree")
+
+
 def main() -> int:
+    start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     from dualvar_tpu_torch.ops.build import load_library, ptxas_log_path
+    from dualvar_tpu_torch.train.pretrain import set_path
 
     smi = device_line()
     kind = torch.cuda.get_device_name(0)
@@ -1360,6 +1657,11 @@ def main() -> int:
         r_state, by_path["path R"], by_path["path R, ATen batch norm"] = \
             run_path_r(torch, log_root)
         by_path.update(run_smoke_presets(torch, log_root))
+        # path C grafts from the main path's checkpoint directory
+        main_ckpt = os.path.join(
+            set_path(smoke_cfg("paper_table1_k400", 8, log_root)), "model")
+        clf_state, path_c = run_path_c(torch, log_root, main_ckpt)
+        by_path.update(path_c)
         for kernel in kernels:
             # each kernel's count on the main path of the slice that ported
             # it (path R for this slice's); every path's count rides along
@@ -1373,6 +1675,8 @@ def main() -> int:
             kernel["launches_by_path"] = {
                 path: counts[kernel["name"]]
                 for path, counts in by_path.items()}
+        aug = next(k for k in kernels if k["name"] == "aug_fused")
+        aug["path_c"] = check_aug_classifier_shapes(torch, device)
         conv = next(k for k in kernels if k["name"] == "conv3d_bn_stats_bf16")
         conv["path_r_layer1"] = check_conv_on_path_r(
             torch, path_r_cfg(8, log_root), r_state)
@@ -1390,6 +1694,11 @@ def main() -> int:
                     MOCO_PRESET, batch_size, log_root, mode=mode,
                     n_series=16))
         time_path_r(torch, log_root)
+        # B=4 steps last about 20 ms: five windows of 20 steps show the
+        # host clock's spread
+        time_train_steps(torch, path_c_cfg(log_root, 4), n=20, windows=5)
+        time_train_steps(torch, path_c_cfg(log_root, 32, videos=32),
+                         windows=3)
         check_f32_forward(torch, "paper_table1_k400",
                           smoke_cfg("paper_table1_k400", 2, log_root), state)
         check_f32_forward(
@@ -1399,9 +1708,12 @@ def main() -> int:
         with bn_stats_env(True):
             check_f32_forward(torch, "path R", path_r_cfg(2, log_root),
                               r_state)
+        check_f32_classifier(torch, path_c_cfg(log_root), clf_state)
     finally:
         shutil.rmtree(log_root, ignore_errors=True)
 
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s from start to "
+          "end, the kernels' build included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

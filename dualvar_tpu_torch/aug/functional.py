@@ -1,9 +1,11 @@
 """Video augmentation primitives on tensors.
 
 Counterpart of the part of ``dualvar_tpu/aug/functional.py`` that the plain
-version of the fused augmentation needs. Every op takes channels-last float32
-frames ``(..., H, W, C)`` in [0, 1]; factors are scalars or tensors that
-broadcast against the clip (e.g. ``(N, 1, 1, 1, 1)`` for ``(N, T, H, W, C)``).
+version of the fused augmentation and the classifier's test crops need. Every
+colour op takes channels-last float32 frames ``(..., H, W, C)`` in [0, 1];
+factors are scalars or tensors that broadcast against the clip (e.g.
+``(N, 1, 1, 1, 1)`` for ``(N, T, H, W, C)``). The crops and the flip take
+frames of any type, uint8 included, with the same ``(..., H, W, C)`` axes.
 
 Factor semantics follow torchvision's float-tensor functional ops, which the
 reference ColorJitter delegates to (augmentation.py:493-505):
@@ -39,6 +41,36 @@ def normalize(clip: torch.Tensor, mean=IMAGENET_MEAN,
     mean = torch.tensor(mean, dtype=clip.dtype, device=clip.device)
     std = torch.tensor(std, dtype=clip.dtype, device=clip.device)
     return (clip - mean) / std
+
+
+def center_crop(clip: torch.Tensor, size: int) -> torch.Tensor:
+    """augmentation.py:178-191: origins ``int(round((d - size) / 2))``,
+    Python's round, which rounds half to even (171 -> 112 gives 30)."""
+    H, W = clip.shape[-3], clip.shape[-2]
+    y0 = int(round((H - size) / 2.0))
+    x0 = int(round((W - size) / 2.0))
+    return clip[..., y0:y0 + size, x0:x0 + size, :]
+
+
+def five_crop(clip: torch.Tensor, size: int, where: int) -> torch.Tensor:
+    """1=topleft 2=topright 3=botleft 4=botright 5=center
+    (augmentation.py:194-220)."""
+    H, W = clip.shape[-3], clip.shape[-2]
+    if where == 1:
+        return clip[..., :size, :size, :]
+    if where == 2:
+        return clip[..., :size, W - size:, :]
+    if where == 3:
+        return clip[..., H - size:, :size, :]
+    if where == 4:
+        # reference crops (w-tw, h-tw, w, h): height origin uses tw
+        return clip[..., H - size:, W - size:, :]
+    return center_crop(clip, size)
+
+
+def hflip(clip: torch.Tensor) -> torch.Tensor:
+    """Horizontal flip: the W axis reversed."""
+    return clip.flip(-2)
 
 
 def grayscale(clip: torch.Tensor) -> torch.Tensor:

@@ -2,13 +2,26 @@
 groups, with the paper scripts' hyperparameters as named presets.
 
 Own copy of ``dualvar_tpu/core/config.py`` (the port imports nothing of the
-JAX package). Field names and defaults are the same, so a preset means the
-same experiment in both packages; two fields read differently here:
+JAX package). The fields the port has carry the JAX package's names and
+defaults, so a preset means the same experiment in both packages. Not here
+yet, because what they switch is not ported (ROADMAP.md, queue A):
+
+* ``DataConfig.fast_decode`` (the native JPEG decoder);
+* ``ModelConfig.remat`` (activation rematerialisation);
+* ``RunConfig.keep_all`` and ``RunConfig.async_ckpt`` (the checkpoint
+  store, A.11); with them the presets ``paper_table1_k400`` and
+  ``s3dg_k400`` lack the JAX package's ``keep_all=True``, and every port
+  run writes each save point and never prunes.
+
+Two fields read differently here:
 
 * ``ModelConfig.dtype`` is the autocast type of the model's forward pass on
   the card (parameters, BN statistics, heads and losses stay float32);
 * ``AugFlags.fused_aug='auto'`` means the hand-written CUDA kernel
-  (``ops/aug_fused.py``) whenever the batch lies on a CUDA device.
+  (``ops/aug_fused.py``) whenever the batch lies on a CUDA device. Only the
+  pretrain trainer reads it; the classifier's train batch always goes
+  through the kernel's wrapper, which takes the plain version for CPU
+  tensors only.
 
 Presets that name a backbone the port does not have yet are kept so the names
 line up; building them raises ``NotImplementedError`` (see ROADMAP.md for the
@@ -49,7 +62,9 @@ class AugFlags:
     aug_temp_consist: bool = True  # pretrain.py:124, paper scripts pass it
     aug_temp_grad_consist: bool = False
     aug_series: bool = True  # pretrain.py:125
-    rand_flip: bool = True  # temporal flip in pretrain
+    rand_flip: bool = True  # temporal flip in pretrain; spatial in classifier
+    with_color_jitter: bool = True  # classifier.py:50
+    aug_crop: bool = True  # classifier.py:104 — Scale((128,171)) when img_dim 112
     # 'sample': reference-exact per-clip random op order
     # (augmentation.py:510); 'batch': one draw per (step, view)
     jitter_order: str = "sample"
@@ -105,6 +120,8 @@ class RunConfig:
     eval_freq: int = 5
     save_freq: int = 5
     seed: int = 0
+    resume: str = ""
+    pretrain: str = ""
     log_root: str = "log"
 
 
@@ -118,6 +135,26 @@ class PretrainConfig:
 
     def replace(self, **kw) -> "PretrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ClassifierConfig:
+    data: DataConfig = field(default_factory=lambda: DataConfig(
+        dataset="ucf101", num_seq=1, ds=2))
+    aug: AugFlags = field(default_factory=lambda: AugFlags(rand_flip=True))
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=lambda: OptimConfig(
+        batch_size=4, lr=0.05, wd=1e-3, epochs=150, schedule=(50, 100)))
+    run: RunConfig = field(default_factory=lambda: RunConfig(prefix="linclr"))
+    train_what: str = "ft"  # 'ft' finetune all | 'last' linear probe
+    num_class: int = 101
+    use_dropout: bool = False
+    dropout: float = 0.5
+    use_l2_norm: bool = False
+    use_final_bn: bool = False
+    # retrieval feature-dump directory under the experiment path
+    # (reference --dirname, classifier.py:77,861-864; default 'feature')
+    dirname: str = "feature"
 
 
 def _smoke_data(**kw) -> DataConfig:
@@ -178,5 +215,31 @@ PRETRAIN_PRESETS: dict[str, PretrainConfig] = {
                           dtype="float32"),
         optim=OptimConfig(batch_size=4, lr=0.01, epochs=1, schedule=(1,)),
         run=RunConfig(prefix="smoke_moco", print_freq=1),
+    ),
+}
+
+
+CLASSIFIER_PRESETS: dict[str, ClassifierConfig] = {
+    # paper_scripts/paper_table1_k400/finetune/*.sh
+    "paper_table1_ucf_ft": ClassifierConfig(
+        data=DataConfig(dataset="ucf101", num_seq=1, ds=2),
+        optim=OptimConfig(batch_size=4, lr=0.05, wd=1e-3, epochs=150,
+                          schedule=(50, 100)),
+        run=RunConfig(prefix="paper_table1_k400"),
+        train_what="ft", num_class=101,
+    ),
+    "paper_table1_hmdb_ft": ClassifierConfig(
+        data=DataConfig(dataset="hmdb51", num_seq=1, ds=2),
+        optim=OptimConfig(batch_size=4, lr=0.05, wd=1e-3, epochs=100,
+                          schedule=(30, 60, 80)),
+        run=RunConfig(prefix="paper_table1_k400"),
+        train_what="ft", num_class=51,
+    ),
+    "smoke": ClassifierConfig(
+        data=_smoke_data(dataset="ucf101", num_seq=1),
+        model=ModelConfig(net="r3d", dtype="float32"),
+        optim=OptimConfig(batch_size=4, lr=0.05, epochs=2, schedule=(1,)),
+        run=RunConfig(prefix="smoke", print_freq=1, eval_freq=1),
+        train_what="ft", num_class=4,
     ),
 }

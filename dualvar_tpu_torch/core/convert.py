@@ -1,9 +1,10 @@
 """Carry weights of the JAX package over to the port.
 
 ``from_jax_variables`` turns the flax ``params`` and ``batch_stats`` trees of
-the JAX ``SimCLRTimeSeriesV4`` (nested dicts of arrays) into a ``state_dict``
-for the port's module of the same name. The port names its submodules after
-the flax tree, so the mapping is mechanical:
+a JAX model (``SimCLRTimeSeriesV4``, ``SimCLRNaked``, ``LinearClassifier``;
+nested dicts of arrays) into a ``state_dict`` for the port's module of the
+same name. The port names its submodules after the flax tree, so the mapping
+is mechanical:
 
 * conv ``kernel (kt, kh, kw, I, O)`` -> ``weight (O, I, kt, kh, kw)``;
 * Dense ``kernel (I, O)`` -> ``weight (O, I)``;
@@ -11,7 +12,8 @@ the flax tree, so the mapping is mechanical:
   ``running_var``;
 * the JAX BatchNorm wrapper's inner ``bn`` level is collapsed
   (``bn1/bn/scale`` -> ``bn1.weight``, ``conv1/bn/bn/mean`` ->
-  ``conv1.bn.running_mean``).
+  ``conv1.bn.running_mean``); a plain flax BatchNorm has no such level
+  (the classifier's ``final_bn/scale`` -> ``final_bn.weight``).
 
 ``from_jax_task_state`` does the same for the MoCo models: the JAX
 ``TaskState`` (query ``params`` / ``batch_stats`` plus ``moco`` with
@@ -52,6 +54,8 @@ def _convert_leaf(path: tuple[str, ...], value: np.ndarray):
             value = value.T
         else:
             raise ValueError(f"{'/'.join(path)}: kernel of rank {value.ndim}")
+    elif leaf in _LEAF_NAMES:  # a plain flax BatchNorm
+        leaf = _LEAF_NAMES[leaf]
     elif leaf != "bias":
         raise KeyError(f"unknown leaf {'/'.join(path)}")
     # a copy: the source array may be read-only or a transposed view

@@ -1,10 +1,10 @@
-"""Host-side input pipeline: frame sources, the pretrain dataset and a
-seeded, thread-pooled batch loader.
+"""Host-side input pipeline: frame sources, the pretrain and classifier
+datasets and a seeded, thread-pooled batch loader.
 
 Own copy of the parts of ``dualvar_tpu/data/loader.py`` that the pretrain
-step needs. The host only produces uint8 frames; crops, jitter, blur and
-normalisation run on the device (``dualvar_tpu_torch.aug``), so batches
-cross to the card as uint8. With the same seed this loader yields the same
+step and the classifier need. The host only produces uint8 frames; crops,
+jitter, blur and normalisation run on the device (``dualvar_tpu_torch.aug``),
+so batches cross to the card as uint8. With the same seed this loader yields the same
 uint8 batch as the JAX package's (tests/test_torch_port_slice.py).
 
 Left out for now: the native C++ JPEG decoder branch of ``JpegFrameSource``
@@ -157,6 +157,88 @@ class PretrainDataset:
         return {
             "frames": self.source(e.vname, idx),
             "label": np.int32(self.class_index.encode(e.vlabel)),
+        }
+
+
+@dataclass
+class ClassifierDataset:
+    """Single-clip classification samples (reference UCF101LMDB,
+    local_dataset.py:176-201).
+
+    Test mode covers ALL half-overlapping temporal windows per video
+    (reference frame_sampler test branch, local_dataset.py:107-123): each
+    (video, window) pair is its own record carrying the video's ``vid``, and
+    the protocols' per-vid probability averaging reproduces the reference's
+    mean over windows (classifier.py:612-628). ``rid`` is the record's index.
+    """
+
+    entries: list[VideoEntry]
+    class_index: ClassIndex
+    source: Callable[[str, np.ndarray], np.ndarray]
+    num_frames: int = 16
+    ds: int = 2
+    mode: str = "train"  # train | val | test
+
+    def __post_init__(self):
+        self._records = None
+        if self.mode == "test":
+            self._records = [
+                (ei, w)
+                for ei, e in enumerate(self.entries)
+                for w in range(samplers.n_test_windows(
+                    e.vlen, self.num_frames, self.ds))
+            ]
+
+    def __len__(self):
+        return len(self._records) if self._records is not None \
+            else len(self.entries)
+
+    def __call__(self, index: int, rng: np.random.Generator) -> dict[str, Any]:
+        if self._records is not None:
+            ei, w = self._records[index]
+            e = self.entries[ei]
+            idx = samplers.test_window(rng, e.vlen, self.num_frames, self.ds, w)
+        else:
+            ei = index
+            e = self.entries[ei]
+            idx = samplers.frame_sampler_train(rng, e.vlen, self.num_frames,
+                                               self.ds)
+        return {
+            "frames": self.source(e.vname, idx),
+            "label": np.int32(self.class_index.encode(e.vlabel)),
+            "vid": np.int32(ei),
+            "rid": np.int32(index),
+        }
+
+    def record_vids(self) -> np.ndarray:
+        """vid per record id (test mode: records are (video, window) pairs;
+        train / val: records are videos)."""
+        if self._records is not None:
+            return np.asarray([ei for ei, _ in self._records], np.int64)
+        return np.arange(len(self.entries), dtype=np.int64)
+
+
+@dataclass
+class TenClipDataset:
+    """10 uniformly spaced clips per video (reference UCF101_10CLIP,
+    local_dataset.py:311-350)."""
+
+    entries: list[VideoEntry]
+    class_index: ClassIndex
+    source: Callable[[str, np.ndarray], np.ndarray]
+    num_frames: int = 16
+    ds: int = 2
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __call__(self, index: int, rng: np.random.Generator) -> dict[str, Any]:
+        e = self.entries[index]
+        idx = samplers.tenclip_sampler(e.vlen, self.num_frames, self.ds)
+        return {
+            "frames": self.source(e.vname, idx),
+            "label": np.int32(self.class_index.encode(e.vlabel)),
+            "vid": np.int32(index),
         }
 
 

@@ -54,7 +54,7 @@ def make_optimizer(cfg: PretrainConfig, params, steps_per_epoch: int):
     o = cfg.optim
     if o.optim != "sgd":
         raise NotImplementedError(
-            f"optim={o.optim!r}: only 'sgd' is ported (ROADMAP.md)")
+            f"optim={o.optim!r}: only 'sgd' is ported (ROADMAP.md A.13)")
     optimizer = torch.optim.SGD(params, lr=o.lr, momentum=o.momentum,
                                 weight_decay=o.wd, dampening=0,
                                 nesterov=False)

@@ -67,3 +67,58 @@ def moco_numpy_state(encoder, example, K, seed, ptr=4):
             "queue": unit((K, encoder.dim)), "series_queue": series_queue,
             "ptr": np.asarray(ptr, np.int32)}
     return params, stats, moco
+
+
+def classifier_test_configs(tmp_path):
+    """The same tiny classifier test setup in both packages: the smoke
+    preset at ``tests/test_protocols.py``'s sizes (R3D, 4x32x32 clips, 2
+    classes), 4 synthetic videos at ds 8 (a few test windows each, not
+    dozens), batch 64: each pass is one batch, so the JAX protocols, which
+    do not pad a short last batch, compile one program a pass. The JAX
+    protocols test the random init they build from ``PRNGKey(0)``
+    (``_load_test_state``); the same variables go through
+    ``from_jax_variables`` into a port classifier checkpoint, which the
+    port's config reads as ``--resume``.
+
+    Returns (JAX config, port config, JAX model, its variables, the port
+    model holding the same weights, in eval mode)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from dualvar_tpu.core.config import CLASSIFIER_PRESETS as JAX_PRESETS
+    from dualvar_tpu.core.config import ModelConfig as JaxModelConfig
+    from dualvar_tpu.train import classifier as JC
+    from dualvar_tpu_torch.core.config import CLASSIFIER_PRESETS, ModelConfig
+    from dualvar_tpu_torch.core.convert import from_jax_variables
+    from dualvar_tpu_torch.train import classifier as TC
+
+    def tiny(cfg, model_cfg, log_root, ckpt=""):
+        return dataclasses.replace(
+            cfg, num_class=2,
+            data=dataclasses.replace(
+                cfg.data, seq_len=4, ds=8, img_dim=32, scale_hw=(40, 36),
+                synthetic_videos=4, synthetic_classes=2, workers=2),
+            model=model_cfg,
+            optim=dataclasses.replace(cfg.optim, batch_size=64),
+            run=dataclasses.replace(cfg.run, log_root=str(log_root),
+                                    resume=ckpt))
+
+    jcfg = tiny(JAX_PRESETS["smoke"],
+                JaxModelConfig(net="r3d", dtype="float32"), tmp_path / "jax")
+    jmodel = JC.build_model(jcfg)
+    key = jax.random.PRNGKey(0)
+    variables = jmodel.init(
+        {"params": key, "dropout": key},
+        jnp.zeros((1, jcfg.data.seq_len, jcfg.data.img_dim,
+                   jcfg.data.img_dim, 3), jnp.float32), train=True)
+    ckpt = str(tmp_path / "port_init.pth.tar")
+    pcfg = tiny(CLASSIFIER_PRESETS["smoke"],
+                ModelConfig(net="r3d", dtype="float32"), tmp_path / "port",
+                ckpt)
+    model = TC.build_model(pcfg)
+    state = from_jax_variables(variables["params"], variables["batch_stats"],
+                               model)
+    torch.save({"epoch": 0, "state_dict": state}, ckpt)
+    model.load_state_dict(state)
+    return jcfg, pcfg, jmodel, variables, model.eval()
