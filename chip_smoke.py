@@ -45,17 +45,33 @@ Phases, each fatal on failure (non-zero exit):
      protocol (center, five and ten crop, temporal ten-clip, retrieval)
      from the finetuned checkpoint; ``aug_fused`` with blur off at N=4 and
      N=32 against its plain version and timed out of L2;
+   - path G: preset ``s3dg_k400`` (SimCLR TimeSeriesV4 on S3D-G), two
+     epochs of three steps saved through the checkpoint store, then
+     ``--resume auto`` for a third: the state restored on the card against
+     the saved file (model, optimizer, scheduler, generator, iteration),
+     what the store keeps under ``keep_all``; one more run with
+     ``DUALVAR_BN_STATS=pallas`` (``channel_sums`` 308 a step);
+   - path M resumed: path M for one epoch, saved, resumed for a second
+     (queues, pointer and key encoder restored bitwise);
+   - the backbone steps: ``paper_table1_k400 --net s3d / c3d / r2d3d18 /
+     r50``, two steps each;
    then step times at B=8 and B=32 (MoCo in ``clip-sr-tc`` and
    ``clip-sr-dtw``, at n_series 2 and 16: the difference is what soft-DTW
    and its cost tensor take), of path R at B=8, 32 and 128 with the
-   variable on and off, and of the classifier's finetune step at B=4 (the
-   median of five 20-step windows, with each window's time) and 32;
+   variable on and off, of the classifier's finetune step at B=4 (the
+   median of five 20-step windows, with each window's time) and 32, of
+   path G at B=8 (five windows) and 32, and of each backbone step at B=8;
 5. on-card float32 checks: one train-mode forward with TF32 off against the
    same forward on the CPU from the same weights and block, for the SimCLR
    model, for MoCo in mode ``clip-sr-dtw`` (where the CPU side runs the
    plain soft-DTW, so the kernels are also held against it inside the model)
-   for path R with the variable on (the CPU side takes the plain sums), and
-   for the finetuned classifier.
+   for path R and path G with the variable on (the CPU side takes the plain
+   sums; the card's forward must launch ``channel_sums`` once a batch norm
+   a backbone pass), for the finetuned classifier, and for path G and each
+   backbone step with the backbone's features compared too (card against
+   CPU, and the CPU's float32 against its float64, at a fixed tolerance a
+   family); and ``channel_sums`` on every batch norm's own maps of one
+   path-G step (308 calls), against float64 sums, timed together.
 
 The last lines of standard output are the script's wall time, one JSON
 object describing every kernel (``{"kernels": [...]}``), the card's name and
@@ -92,6 +108,27 @@ SPECIAL_OPS_PER_S = 16 * 132 * 1.98e9
 TRAIN_STEPS = 4
 PATH_S_STEPS = 2
 MOCO_PRESET = "paper_table2_moco_r21d"
+# path G: --preset s3dg_k400 (SimCLR TimeSeriesV4 on S3D-G), epochs of
+# PATH_G_VIDEOS // 8 steps at B=8, then one more epoch through --resume
+PATH_G_PRESET = "s3dg_k400"
+PATH_G_VIDEOS = 24
+# S3D-G's batch norms: Conv_1a 2, Conv_2b 1, Conv_2c 2, nine Mixed blocks
+# of 8; the unpacked TimeSeriesV4 step runs the backbone twice (the 3B
+# views, then the B shuffled clips), each batch norm one forward and one
+# backward channel_sums call a pass
+S3DG_BATCH_NORMS = 77
+S3DG_SUMS_PER_STEP = 2 * 2 * S3DG_BATCH_NORMS
+# the backbone steps: paper_table1_k400 --net <x>, 2 steps at B=8
+BACKBONE_STEP_NETS = ("s3d", "c3d", "r2d3d18", "r50")
+# float32 backbone features inside check_f32_forward (TF32 off), card
+# against CPU and the CPU's float32 against its float64: the JAX suite's
+# band for a backbone forward against its torch oracle (ROADMAP.md), for
+# every family but R2D3D-50. Its float32 forward at B=2 lies 7.2e-4 to
+# 7.6e-4 from its own float64 on the CPU through 53 batch norms, and the
+# card 8.0e-4 to 9.8e-4 from the CPU (H100 readings in PERF.md): a fixed
+# 1.5e-3 for it.
+FEATURE_F32_ATOL = 2e-4
+FEATURE_F32_ATOL_BY_NET = {"r50": 1.5e-3}
 # path C: the downstream classifier, finetuned and probed from the main
 # path's checkpoint
 CLASSIFIER_PRESET = "paper_table1_ucf_ft"
@@ -624,6 +661,31 @@ def sums_bound_ms(numel: int, C: int, elem_bytes: int,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sums_errors(torch, a, b) -> tuple[float, float]:
+    """channel_sums(a, b) over dim 1 against float64 sums and against its
+    plain version: the largest error relative to the summed magnitudes
+    (sum |a|, sum |a*b|), and the largest absolute difference from the
+    plain version."""
+    from dualvar_tpu_torch.ops import bn_stats as mod
+
+    s1, s2 = mod.channel_sums(a, b, dim=1)
+    p1, p2 = mod.channel_sums_plain(a, b, dim=1)
+    a64, b64 = a.double(), b.double()
+    dims = (0, 2, 3, 4)
+    r1, r2 = a64.sum(dims), (a64 * b64).sum(dims)
+    # a channel of zeros (a gradient a ReLU cut everywhere) sums to 0 on
+    # every side
+    m1 = a64.abs().sum(dims).clamp_min(1e-300)
+    m2 = (a64 * b64).abs().sum(dims).clamp_min(1e-300)
+    torch.cuda.synchronize()
+    err = max(float(((s1.double() - r1).abs() / m1).max()),
+              float(((s2.double() - r2).abs() / m2).max()),
+              float(((s1 - p1).double().abs() / m1).max()),
+              float(((s2 - p2).double().abs() / m2).max()))
+    return err, max(float((s1 - p1).abs().max()),
+                    float((s2 - p2).abs().max()))
+
+
 def check_channel_sums_kernel(torch, device) -> dict:
     """channel_sums against float64 sums and its plain version on the card,
     at path R's map shapes and a ragged one, in NCDHW and channels_last_3d,
@@ -642,21 +704,9 @@ def check_channel_sums_kernel(torch, device) -> dict:
             for fmt in (torch.contiguous_format, torch.channels_last_3d):
                 a = base.to(dtype).contiguous(memory_format=fmt)
                 for b in (a, other.to(dtype).contiguous(memory_format=fmt)):
-                    s1, s2 = mod.channel_sums(a, b, dim=1)
-                    p1, p2 = mod.channel_sums_plain(a, b, dim=1)
-                    a64, b64 = a.double(), b.double()
-                    dims = (0, 2, 3, 4)
-                    r1, r2 = a64.sum(dims), (a64 * b64).sum(dims)
-                    m1, m2 = a64.abs().sum(dims), (a64 * b64).abs().sum(dims)
-                    torch.cuda.synchronize()
-                    err = max(
-                        float(((s1.double() - r1).abs() / m1).max()),
-                        float(((s2.double() - r2).abs() / m2).max()),
-                        float(((s1 - p1).double().abs() / m1).max()),
-                        float(((s2 - p2).double().abs() / m2).max()))
+                    err, err_abs = sums_errors(torch, a, b)
                     worst = max(worst, err)
-                    worst_abs = max(worst_abs, float((s1 - p1).abs().max()),
-                                    float((s2 - p2).abs().max()))
+                    worst_abs = max(worst_abs, err_abs)
                     if not err <= SUMS_RTOL:
                         fail(f"channel_sums {shape} {dtype} {fmt} "
                              f"a{'=' if b is a else '!='}b: relative error "
@@ -1300,22 +1350,35 @@ def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
     torch.cuda.empty_cache()
 
 
-def check_f32_forward(torch, label: str, cfg, state: dict) -> None:
+def check_f32_forward(torch, label: str, cfg, state: dict,
+                      want_sums: int = 0,
+                      feature_atol: float | None = None) -> None:
     """One train-mode float32 forward on the card, TF32 off, against the CPU
     from the same state_dict, block and segment permutation. On the CPU the
     soft-DTW wrapper takes its plain version, so for mode clip-sr-dtw this
-    also holds the kernels against it inside the model.
+    also holds the kernels against it inside the model; under
+    ``DUALVAR_BN_STATS=pallas`` the same holds for ``channel_sums``, and the
+    card's forward must launch it ``want_sums`` times (one call a batch
+    norm a backbone pass), else never.
 
     Tolerances: the losses to 1e-4 and the logits (cosine / 0.07, so up to
     +-14.3) to 5e-4 absolute — float32 convolutions that sum in another
     order, through 18 layers of batch-statistics BN on a 2-clip batch.
     TF32 convolutions (3 decimal digits) would miss these by a wide margin,
-    so the check also shows that the flags took effect."""
+    so the check also shows that the flags took effect.
+
+    With ``feature_atol`` the backbone's outputs inside the forward are
+    compared too: the card's against the CPU's, and the CPU's float32
+    against a float64 pass of the CPU's backbone on the same inputs, each
+    within ``feature_atol``."""
     from dualvar_tpu_torch.aug.pipeline import AugConfig, pretrain_batch
     from dualvar_tpu_torch.data.loader import HostLoader
+    from dualvar_tpu_torch.ops.bn_stats import channel_sums
     from dualvar_tpu_torch.train.pretrain import build_dataset
     from dualvar_tpu_torch.train.tasks import make_task
 
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     n_views = 2 if cfg.model.model.endswith("naked") else 3
@@ -1326,14 +1389,24 @@ def check_f32_forward(torch, label: str, cfg, state: dict) -> None:
     aug_cfg = AugConfig(jitter_order="sample")
     block = pretrain_batch(generator, frames.to("cuda"), aug_cfg)
     perm = torch.tensor([[1, 0], [0, 1]])
-    rets = {}
+    rets, feats = {}, {}
     for dev in ("cuda", "cpu"):
         task = make_task(cfg.model)
         task.model.load_state_dict(state)
         task.model.to(dev).train()
+        seen = feats[dev] = []  # (input, output) of each backbone pass
+        if feature_atol is not None:
+            hook = task.model.backbone.register_forward_hook(
+                lambda mod, args, out, seen=seen: seen.append(
+                    (args[0].to("cpu", copy=True), out.double().cpu())))
+        before = channel_sums.launches
         with torch.no_grad():
             rets[dev] = {k: v.float().cpu() for k, v in task.forward(
                 block.to(dev), perm=perm).items()}
+        if feature_atol is not None:
+            hook.remove()
+        if dev == "cuda":
+            sums = channel_sums.launches - before
     worst_loss = worst_logit = 0.0
     for key, want in rets["cpu"].items():
         got = rets["cuda"][key]
@@ -1353,9 +1426,301 @@ def check_f32_forward(torch, label: str, cfg, state: dict) -> None:
             worst_logit = max(worst_logit, err)
     print(f"f32 check, {label}: card vs CPU, TF32 off: max loss err "
           f"{worst_loss:.3e} (atol 1e-4), max logit err {worst_logit:.3e} "
-          "(atol 5e-4)", flush=True)
+          f"(atol 5e-4); channel_sums launches {sums} (expected "
+          f"{want_sums})", flush=True)
     if not (worst_loss <= 1e-4 and worst_logit <= 5e-4):
         fail(f"f32 check, {label}: card and CPU forwards disagree")
+    if sums != want_sums:
+        fail(f"f32 check, {label}: the card's forward launched channel_sums "
+             f"{sums} times, expected {want_sums}")
+    if feature_atol is not None:
+        backbone = task.model.backbone.double()
+        with torch.no_grad():
+            f64 = [backbone(x.double()) for x, _ in feats["cpu"]]
+        errs = {"card_vs_cpu": 0.0, "cpu_vs_f64": 0.0, "card_vs_f64": 0.0}
+        for (_, card), (_, cpu), want in zip(feats["cuda"], feats["cpu"],
+                                             f64):
+            if not torch.isfinite(card).all():
+                fail(f"f32 check, {label}: the card's features are not "
+                     "finite")
+            for key, a, b in (("card_vs_cpu", card, cpu),
+                              ("cpu_vs_f64", cpu, want),
+                              ("card_vs_f64", card, want)):
+                errs[key] = max(errs[key], float((a - b).abs().max()))
+        errs["max_abs_out"] = max(float(w.abs().max()) for w in f64)
+        print(f"f32 check, {label}: backbone features of "
+              f"{len(f64)} passes, shapes "
+              f"{[tuple(w.shape) for w in f64]}: " + json.dumps(errs)
+              + f" (atol {feature_atol:.1e} on card_vs_cpu and cpu_vs_f64)",
+              flush=True)
+        if not (len(feats["cuda"]) == len(f64) > 0
+                and errs["card_vs_cpu"] <= feature_atol
+                and errs["cpu_vs_f64"] <= feature_atol):
+            fail(f"f32 check, {label}: backbone features off by more than "
+                 f"{feature_atol}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+
+
+def check_restore_on_card(torch, label: str, cfg) -> dict:
+    """What ``--resume`` restores, on the card: ``setup_training`` on cuda,
+    then ``restore_training_state`` from the latest checkpoint of the run's
+    store (what ``train()`` does). The model's state_dict, the optimizer's
+    momentum buffers, the scheduler's state and the CUDA generator's state
+    must equal the saved file bitwise. Returns the checkpoint."""
+    from dualvar_tpu_torch.core.checkpoint import CheckpointStore
+    from dualvar_tpu_torch.train.pretrain import (restore_training_state,
+                                                  set_path, setup_training)
+
+    ckpt = CheckpointStore(os.path.join(set_path(cfg), "model")).restore()
+    setup = setup_training(cfg, "cuda")
+    setup.loader.close()
+    restore_training_state(ckpt, setup.model, setup.optimizer,
+                           setup.scheduler, setup.generator)
+    torch.cuda.synchronize()
+    bad = [k for k, v in setup.model.state_dict().items()
+           if v.device.type != "cuda" or not torch.equal(
+               v.cpu(), ckpt["state_dict"][k])]
+    opt = setup.optimizer.state_dict()["state"]
+    want_opt = ckpt["optimizer"]["state"]
+    if set(opt) != set(want_opt) or not opt:
+        bad.append("optimizer state keys")
+    bad += [f"optimizer {i}" for i in opt if not torch.equal(
+        opt[i]["momentum_buffer"].cpu(), want_opt[i]["momentum_buffer"])]
+    sched = setup.scheduler.state_dict()
+    want_sched = ckpt["scheduler"]
+    if (dict(sched["milestones"]) != want_sched["milestones"]
+            or {k: v for k, v in sched.items() if k != "milestones"}
+            != {k: v for k, v in want_sched.items() if k != "milestones"}):
+        bad.append("scheduler")
+    if setup.generator.device.type != "cuda" or not torch.equal(
+            setup.generator.get_state(), ckpt["generator"]):
+        bad.append("generator")
+    if bad:
+        fail(f"{label}: restored on the card unlike the saved file: "
+             f"{bad[:6]}")
+    print(f"{label}: restored epoch {ckpt['epoch']} iteration "
+          f"{ckpt['iteration']} on the card: {len(ckpt['state_dict'])} "
+          f"state_dict entries, {len(opt)} momentum buffers, the scheduler "
+          "and the CUDA generator's state bitwise as saved", flush=True)
+    del setup
+    torch.cuda.empty_cache()
+    return ckpt
+
+
+def check_store(label: str, cfg, latest: list, best: list) -> None:
+    """The epochs the run's store keeps in ``latest/`` and ``best/``."""
+    from dualvar_tpu_torch.core.checkpoint import _epoch_files
+    from dualvar_tpu_torch.train.pretrain import set_path
+
+    model = os.path.join(set_path(cfg), "model")
+    got = [sorted(_epoch_files(os.path.join(model, d)))
+           for d in ("latest", "best")]
+    if got != [latest, best]:
+        fail(f"{label}: the store keeps latest {got[0]} best {got[1]}, "
+             f"expected {latest} {best}")
+    print(f"{label}: the store keeps latest {latest}, best {best} "
+          f"(keep_all={cfg.run.keep_all})", flush=True)
+
+
+def path_g_cfg(batch_size: int, log_root: str, epochs: int = 2,
+               resume: str = "", videos: int = PATH_G_VIDEOS, tag: str = ""):
+    """Path G: ``--preset s3dg_k400`` at full width (S3D-G, 3 views,
+    16x112x112 clips at ds 4, SGD, bf16 autocast, keep_all) on ``videos``
+    synthetic videos, saving every epoch."""
+    cfg = smoke_cfg(PATH_G_PRESET, batch_size, log_root)
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, synthetic_videos=max(
+            videos, batch_size)),
+        optim=dataclasses.replace(cfg.optim, epochs=epochs),
+        run=dataclasses.replace(cfg.run, eval_freq=1, save_freq=1,
+                                resume=resume,
+                                name_prefix=cfg.run.name_prefix + tag))
+
+
+def run_path_g(torch, log_root: str) -> tuple[dict, dict]:
+    """Path G: two epochs, then ``--resume auto`` for a third, then a run
+    with ``DUALVAR_BN_STATS=pallas``. Returns the resumed run's state_dict
+    and the launch counts by run."""
+    spe = PATH_G_VIDEOS // 8
+    by_run = {}
+    cfg = path_g_cfg(8, log_root)
+    _, by_run["path G"] = run_path(
+        torch, "path G", cfg, 2 * spe,
+        expected_launches(aug_fused=2 * spe), TSV4_LOSSES)
+    check_store("path G", cfg, [0, 1], [0, 1])
+
+    resumed = path_g_cfg(8, log_root, epochs=3, resume="auto")
+    ckpt = check_restore_on_card(torch, "path G", resumed)
+    if (ckpt["epoch"], ckpt["iteration"]) != (1, 2 * spe):
+        fail(f"path G: the latest checkpoint is epoch {ckpt['epoch']} "
+             f"iteration {ckpt['iteration']}, not 1 and {2 * spe}")
+    # one epoch more: the run starts at epoch 2, global step 2 * spe
+    state, by_run["path G, resumed"] = run_path(
+        torch, "path G, resumed", resumed, 3 * spe,
+        expected_launches(aug_fused=spe), TSV4_LOSSES)
+    check_store("path G, resumed", resumed, [1, 2], [0, 1, 2])
+    if torch.equal(state["backbone.Conv_1a.conv1.weight"],
+                   ckpt["state_dict"]["backbone.Conv_1a.conv1.weight"]):
+        fail("path G, resumed: the stem did not move in the third epoch")
+
+    pallas = path_g_cfg(8, log_root, epochs=1, tag="_pallas")
+    with bn_stats_env(True):
+        _, by_run["path G, DUALVAR_BN_STATS=pallas"] = run_path(
+            torch, "path G, DUALVAR_BN_STATS=pallas", pallas, PATH_S_STEPS,
+            expected_launches(aug_fused=PATH_S_STEPS,
+                              channel_sums=S3DG_SUMS_PER_STEP * PATH_S_STEPS),
+            TSV4_LOSSES)
+    return state, by_run
+
+
+def check_sums_on_path_g(torch, cfg, state: dict) -> dict:
+    """channel_sums on path G's own maps: one train step of the model path G
+    trained (variable on, bf16 autocast) with every batch norm's input and
+    the gradient of its output hooked — 77 layers of 16 to 384 channels,
+    each in both backbone passes, so the step's 154 forward calls (x, x)
+    and 154 backward calls (g, x) exactly as the layer makes them. Each call
+    against float64 sums and the plain version (``SUMS_RTOL``); then the
+    308 calls timed together, replayed from one CUDA graph, beside the
+    plain version and ATen's pair on the same maps."""
+    from dualvar_tpu_torch.models.layers import BatchNorm, _memory_format
+    from dualvar_tpu_torch.ops import bn_stats as mod
+    from dualvar_tpu_torch.train.pretrain import setup_training
+
+    with bn_stats_env(True):
+        setup = setup_training(cfg, "cuda")
+        setup.model.load_state_dict(state)
+        with setup.loader as loader:
+            frames = torch.from_numpy(
+                next(loader.epoch(0))["frames"]).to("cuda")
+        calls = []  # (a, b) of each channel_sums call of the step
+
+        def hook(layer, args, out):
+            x = args[0].detach()
+            calls.append((x, x))
+            out.register_hook(lambda g: calls.append((g.contiguous(
+                memory_format=_memory_format(x)), x)))
+
+        layers = [m for m in setup.model.backbone.modules()
+                  if isinstance(m, BatchNorm)]
+        hooks = [m.register_forward_hook(hook) for m in layers]
+        before = mod.channel_sums.launches
+        setup.train_step(frames, setup.generator)
+        torch.cuda.synchronize()
+        launched = mod.channel_sums.launches - before
+        for h in hooks:
+            h.remove()
+    if not (len(layers) == S3DG_BATCH_NORMS
+            and len(calls) == launched == S3DG_SUMS_PER_STEP):
+        fail(f"path G step: {len(layers)} batch norms, {len(calls)} calls "
+             f"hooked, {launched} launched; expected {S3DG_BATCH_NORMS} and "
+             f"{S3DG_SUMS_PER_STEP}")
+    worst = worst_abs = 0.0
+    for a, b in calls:
+        err, err_abs = sums_errors(torch, a, b)
+        worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
+    bound = 0.0
+    library_args = []
+    for a, b in calls:
+        C = a.shape[1]
+        bound += sums_bound_ms(a.numel(), C, a.element_size(),
+                               backward=b is not a)[0]
+        ones = torch.ones(C, device=a.device)
+        library_args.append((a, b, torch.zeros_like(ones), ones))
+
+    def kernel():
+        for a, b in calls:
+            mod.channel_sums(a, b, dim=1)
+
+    def plain():
+        for a, b in calls:
+            mod.channel_sums_plain(a, b, dim=1)
+
+    def library():
+        for a, b, mean, ones in library_args:
+            if b is a:
+                torch.batch_norm_stats(a, 1e-5)
+            else:
+                torch.batch_norm_backward_reduce(a, b, mean, ones, ones,
+                                                 True, True, True)
+
+    row = {"calls": len(calls), "batch_norms": len(layers),
+           "widths": sorted({m.weight.numel() for m in layers}),
+           "dtypes": sorted({str(a.dtype) for a, _ in calls}),
+           "max_rel_err": worst, "max_abs_err": worst_abs,
+           "ms": time_cuda_graph(torch, kernel, 1),
+           "plain_ms": time_cuda(torch, plain, 5),
+           "library_ms": time_cuda_graph(torch, library, 1),
+           "bound_ms": bound}
+    print("path G step: channel_sums on the step's own maps (B=8, every "
+          "batch norm, forward and backward): " + json.dumps(row),
+          flush=True)
+    if not worst <= SUMS_RTOL:
+        fail(f"path G step: channel_sums relative error {worst} > "
+             f"{SUMS_RTOL}")
+    del setup, calls, library_args
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_path_m_resume(torch, log_root: str) -> dict:
+    """Path M for one epoch of two steps, saved, then resumed for a
+    second: the queue, the series queue, the pointer and the key encoder
+    come back on the card bitwise as saved, and after the second epoch the
+    queues hold the four steps' keys."""
+    by_run = {}
+
+    def cfg_of(epochs, resume=""):
+        cfg = smoke_cfg(MOCO_PRESET, 8, log_root, mode="clip-sr-dtw")
+        return cfg.replace(
+            data=dataclasses.replace(cfg.data, synthetic_videos=16),
+            optim=dataclasses.replace(cfg.optim, epochs=epochs),
+            run=dataclasses.replace(cfg.run, eval_freq=1, save_freq=1,
+                                    resume=resume,
+                                    name_prefix=cfg.run.name_prefix
+                                    + "_resume"))
+
+    first = cfg_of(1)
+    counts = dict(aug_fused=2, soft_dtw_fwd=4, soft_dtw_bwd=4)
+    _, by_run["path M, one epoch"] = run_path(
+        torch, "path M, one epoch", first, 2, expected_launches(**counts),
+        TSV4_LOSSES)
+    resumed = cfg_of(2, resume="auto")
+    ckpt = check_restore_on_card(torch, "path M", resumed)
+    moco = ("queue", "series_queue", "queue_ptr")
+    if int(ckpt["state_dict"]["queue_ptr"]) != 16:
+        fail(f"path M: saved queue_ptr {int(ckpt['state_dict']['queue_ptr'])}"
+             " != 16")
+    state, by_run["path M, resumed"] = run_path(
+        torch, "path M, resumed", resumed, 4, expected_launches(**counts),
+        TSV4_LOSSES)
+    check_moco_state(torch, "path M, resumed", resumed, state, 4)
+    print("path M: " + ", ".join(moco) + " and the key encoder ("
+          f"{sum(k.startswith('encoder_k.') for k in ckpt['state_dict'])} "
+          "entries) restored bitwise", flush=True)
+    return by_run
+
+
+def run_backbone_steps(torch, log_root: str) -> dict:
+    """``paper_table1_k400 --net <x>`` for each of ``BACKBONE_STEP_NETS``:
+    two steps at B=8 (``aug_fused`` 2), the step time at B=8 (three
+    10-step windows) with peak memory, and the backbone's float32 forward
+    on the card against the CPU (``check_f32_forward`` with the family's
+    feature tolerance)."""
+    by_run = {}
+    for net in BACKBONE_STEP_NETS:
+        cfg = smoke_cfg("paper_table1_k400", 8, log_root, net=net)
+        label = f"backbone {net}"
+        state, by_run[label] = run_path(
+            torch, label, cfg, PATH_S_STEPS,
+            expected_launches(aug_fused=PATH_S_STEPS), TSV4_LOSSES)
+        time_train_steps(torch, cfg, windows=3)
+        check_f32_forward(
+            torch, label, smoke_cfg("paper_table1_k400", 2, log_root, net=net),
+            state, feature_atol=FEATURE_F32_ATOL_BY_NET.get(
+                net, FEATURE_F32_ATOL))
+        torch.cuda.empty_cache()
+    return by_run
 
 
 # --------------------------------------------------------------------------
@@ -1662,6 +2027,10 @@ def main() -> int:
             set_path(smoke_cfg("paper_table1_k400", 8, log_root)), "model")
         clf_state, path_c = run_path_c(torch, log_root, main_ckpt)
         by_path.update(path_c)
+        g_state, path_g = run_path_g(torch, log_root)
+        by_path.update(path_g)
+        by_path.update(run_path_m_resume(torch, log_root))
+        by_path.update(run_backbone_steps(torch, log_root))
         for kernel in kernels:
             # each kernel's count on the main path of the slice that ported
             # it (path R for this slice's); every path's count rides along
@@ -1675,6 +2044,11 @@ def main() -> int:
             kernel["launches_by_path"] = {
                 path: counts[kernel["name"]]
                 for path, counts in by_path.items()}
+        sums = next(k for k in kernels if k["name"] == "channel_sums")
+        sums["path_g_launches_per_step"] = by_path[
+            "path G, DUALVAR_BN_STATS=pallas"]["channel_sums"] / PATH_S_STEPS
+        sums["path_g_step"] = check_sums_on_path_g(
+            torch, path_g_cfg(8, log_root), g_state)
         aug = next(k for k in kernels if k["name"] == "aug_fused")
         aug["path_c"] = check_aug_classifier_shapes(torch, device)
         conv = next(k for k in kernels if k["name"] == "conv3d_bn_stats_bf16")
@@ -1699,6 +2073,9 @@ def main() -> int:
         time_train_steps(torch, path_c_cfg(log_root, 4), n=20, windows=5)
         time_train_steps(torch, path_c_cfg(log_root, 32, videos=32),
                          windows=3)
+        time_train_steps(torch, path_g_cfg(8, log_root), windows=5)
+        time_train_steps(torch, path_g_cfg(32, log_root, videos=32),
+                         windows=3)
         check_f32_forward(torch, "paper_table1_k400",
                           smoke_cfg("paper_table1_k400", 2, log_root), state)
         check_f32_forward(
@@ -1707,8 +2084,13 @@ def main() -> int:
             moco_state)
         with bn_stats_env(True):
             check_f32_forward(torch, "path R", path_r_cfg(2, log_root),
-                              r_state)
+                              r_state, want_sums=R3D_BATCH_NORMS)
         check_f32_classifier(torch, path_c_cfg(log_root), clf_state)
+        with bn_stats_env(True):
+            # no backward: one call a batch norm, two backbone passes
+            check_f32_forward(torch, "path G", path_g_cfg(2, log_root),
+                              g_state, want_sums=2 * S3DG_BATCH_NORMS,
+                              feature_atol=FEATURE_F32_ATOL)
     finally:
         shutil.rmtree(log_root, ignore_errors=True)
 

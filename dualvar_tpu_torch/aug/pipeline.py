@@ -45,8 +45,8 @@ class AugConfig:
     # 'batch': one jitter op-order draw per (step, view), shared across the
     # batch. 'sample': reference-exact per-clip order (augmentation.py:510).
     jitter_order: str = "batch"
-    # 'auto' = the CUDA kernel when the frames lie on a CUDA device;
-    # 'on' forces the kernel wrapper, 'off' the plain version
+    # 'auto' = the CUDA kernel when the frames lie on a CUDA device; 'on'
+    # forces the kernel wrapper; 'off' the plain version, on CPU frames only
     fused: str = "auto"
 
     @property
@@ -185,11 +185,20 @@ def pretrain_batch_fused(generator: torch.Generator | None,
 
 def _use_fused(cfg: AugConfig, device: torch.device) -> bool:
     """Single source of truth for kernel-vs-plain: 'auto' means the kernel
-    exactly when the frames lie on a CUDA device."""
+    exactly when the frames lie on a CUDA device, 'on' the kernel's wrapper
+    (which takes the plain version for CPU frames). 'off' is the plain
+    version for CPU frames only: on a CUDA device the JAX package's 'off' is
+    its unfused per-frame path, which is not ported, and the plain version
+    never stands in for the kernel there."""
+    if cfg.fused not in ("auto", "on", "off"):
+        raise ValueError(f"fused must be auto/on/off, got {cfg.fused!r}")
+    if cfg.fused == "off" and device.type == "cuda":
+        raise NotImplementedError(
+            "fused_aug='off' on a CUDA device: the JAX package's 'off' is the "
+            "unfused per-frame augmentation, which is not ported (ROADMAP.md "
+            "A.13); use 'auto' or 'on' (the CUDA kernel)")
     if cfg.fused == "auto":
         return device.type == "cuda"
-    if cfg.fused not in ("on", "off"):
-        raise ValueError(f"fused must be auto/on/off, got {cfg.fused!r}")
     return cfg.fused == "on"
 
 

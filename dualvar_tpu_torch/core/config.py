@@ -7,11 +7,7 @@ defaults, so a preset means the same experiment in both packages. Not here
 yet, because what they switch is not ported (ROADMAP.md, queue A):
 
 * ``DataConfig.fast_decode`` (the native JPEG decoder);
-* ``ModelConfig.remat`` (activation rematerialisation);
-* ``RunConfig.keep_all`` and ``RunConfig.async_ckpt`` (the checkpoint
-  store, A.11); with them the presets ``paper_table1_k400`` and
-  ``s3dg_k400`` lack the JAX package's ``keep_all=True``, and every port
-  run writes each save point and never prunes.
+* ``ModelConfig.remat`` (activation rematerialisation).
 
 Two fields read differently here:
 
@@ -22,10 +18,6 @@ Two fields read differently here:
   pretrain trainer reads it; the classifier's train batch always goes
   through the kernel's wrapper, which takes the plain version for CPU
   tensors only.
-
-Presets that name a backbone the port does not have yet are kept so the names
-line up; building them raises ``NotImplementedError`` (see ROADMAP.md for the
-porting queue).
 """
 
 from __future__ import annotations
@@ -122,6 +114,9 @@ class RunConfig:
     seed: int = 0
     resume: str = ""
     pretrain: str = ""
+    keep_all: bool = False  # keep every checkpoint (k400 runs)
+    # overlap checkpoint writes with training (core/checkpoint.py)
+    async_ckpt: bool = True
     log_root: str = "log"
 
 
@@ -171,7 +166,7 @@ PRETRAIN_PRESETS: dict[str, PretrainConfig] = {
         model=ModelConfig(net="r21d", model="simclr_timeseriesv4"),
         optim=OptimConfig(batch_size=8, lr=0.003, wd=1e-4, epochs=200,
                           schedule=(120, 160)),
-        run=RunConfig(prefix="paper_table1_k400"),
+        run=RunConfig(prefix="paper_table1_k400", keep_all=True),
     ),
     # paper_scripts/paper_table2_moco_r21d/pretrain/*.sh — MoCo K=16384
     "paper_table2_moco_r21d": PretrainConfig(
@@ -194,7 +189,7 @@ PRETRAIN_PRESETS: dict[str, PretrainConfig] = {
         model=ModelConfig(net="s3dg", model="simclr_timeseriesv4"),
         optim=OptimConfig(batch_size=8, lr=0.003, wd=1e-4, epochs=200,
                           schedule=(120, 160)),
-        run=RunConfig(prefix="s3dg_k400"),
+        run=RunConfig(prefix="s3dg_k400", keep_all=True),
     ),
     # CPU-runnable synthetic smokes (same names and sizes as the JAX package)
     "smoke": PretrainConfig(

@@ -2,22 +2,43 @@
 
 Counterpart of ``dualvar_tpu/models/backbones/__init__.py``: name ->
 (module, {'feature_size': int}). Backbones take ``(B, C, T, H, W)`` clips and
-return post-ReLU 5-D feature maps.
+return 5-D feature maps, post-ReLU except ResNet-2d3d's, whose last block has
+no final ReLU (as in the reference). r50's width is its layer 4's true 1024,
+not the reference registry's 2048.
+
+The JAX package's registry variants ``s3d_packed``, ``s3dg_packed``,
+``r21d_tiled`` and ``r21d_pad128`` are not ported (ROADMAP.md, A.7).
 """
 
 from __future__ import annotations
 
+from .c3d import C3D
 from .r3d import R3DNet
 from .r21d import R2Plus1DNet
+from .resnet_2d3d import R2D3D18_SPEC, R2D3D50_SPEC, ResNet2d3d
+from .s3dg import S3D
 
-__all__ = ["select_backbone", "R3DNet", "R2Plus1DNet"]
+__all__ = ["select_backbone", "C3D", "R3DNet", "R2Plus1DNet", "ResNet2d3d",
+           "S3D"]
+
+_BACKBONES = {
+    "s3d": (lambda: S3D(), 1024),
+    "s3dg": (lambda: S3D(gating=True), 1024),
+    "c3d": (C3D, 512),
+    "r3d": (R3DNet, 512),
+    "r21d": (R2Plus1DNet, 512),
+    "r2d3d18": (lambda: ResNet2d3d(**R2D3D18_SPEC), 256),
+    "r50": (lambda: ResNet2d3d(**R2D3D50_SPEC), 1024),
+}
+_NOT_PORTED = ("s3d_packed", "s3dg_packed", "r21d_tiled", "r21d_pad128")
 
 
 def select_backbone(network: str):
-    if network == "r21d":
-        return R2Plus1DNet(), {"feature_size": 512}
-    if network == "r3d":
-        return R3DNet(), {"feature_size": 512}
-    raise NotImplementedError(
-        f"backbone {network!r} is not ported yet; only 'r21d' and 'r3d' are "
-        "(the remaining backbones are queued in ROADMAP.md)")
+    if network in _BACKBONES:
+        build, feature_size = _BACKBONES[network]
+        return build(), {"feature_size": feature_size}
+    if network in _NOT_PORTED:
+        raise NotImplementedError(
+            f"backbone {network!r} is a registry variant of the JAX package "
+            "that is not ported yet (ROADMAP.md, A.7)")
+    raise NotImplementedError(f"unknown backbone {network!r}")

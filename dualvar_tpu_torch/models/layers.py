@@ -3,7 +3,8 @@
 Counterpart of ``dualvar_tpu/models/layers.py``. Inside the backbones all
 tensors are torch's ``(B, C, T, H, W)``; convolutions are ``nn.Conv3d`` (its
 default init is the init the JAX package copies: kaiming-uniform with
-a=sqrt(5), i.e. U(+-1/sqrt(fan_in))).
+a=sqrt(5), i.e. U(+-1/sqrt(fan_in))); S3D and ResNet-2d3d redraw theirs
+with ``normal_init_`` and ``kaiming_fan_out_init_``.
 
 The JAX package's space-to-depth stem and phase-split stride-2 data gradient
 are rewrites of this same math for another machine; cuDNN convolutions take
@@ -139,6 +140,27 @@ class BatchNorm(nn.Module):
             self.running_mean.lerp_(mean.to(stat), self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return y
+
+
+def max_pool3d(x: torch.Tensor, kernel_size, stride=None,
+               padding=0) -> torch.Tensor:
+    """torch.nn.MaxPool3d, which pads with -inf as flax's ``nn.max_pool``
+    does in the JAX package's ``layers.max_pool3d``."""
+    return torch.nn.functional.max_pool3d(x, kernel_size, stride, padding)
+
+
+def normal_init_(conv: nn.Conv3d, std: float = 0.01) -> nn.Conv3d:
+    """The conv's weight drawn from normal(0, ``std``) (S3D's init)."""
+    nn.init.normal_(conv.weight, 0.0, std)
+    return conv
+
+
+def kaiming_fan_out_init_(conv: nn.Conv3d) -> nn.Conv3d:
+    """The conv's weight drawn from kaiming normal over its fan-out
+    (ResNet-2d3d's init)."""
+    nn.init.kaiming_normal_(conv.weight, mode="fan_out",
+                            nonlinearity="relu")
+    return conv
 
 
 def global_avg_pool3d(x: torch.Tensor) -> torch.Tensor:

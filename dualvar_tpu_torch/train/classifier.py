@@ -17,10 +17,13 @@ classifier.py:38-108 flags + :273-319 dispatch):
 The train step's augmentation goes through the fused CUDA kernel
 (``aug/pipeline.py:classifier_train_batch``, blur off); eval and the test
 protocols only crop and normalise. ``--pretrain`` grafts the backbone of a
-port pretrain checkpoint (``core/checkpoint.py``); ``--resume`` gives the
-test protocols a classifier checkpoint ``train`` wrote. Single process;
-runs on ``cuda`` unless the caller passes ``device="cpu"``, and a missing
-card is an error.
+port pretrain checkpoint (``core/checkpoint.py``). Checkpoints go through
+``CheckpointStore`` under ``model/`` (best five by validation accuracy),
+with the fields of the pretrain trainer's; ``--resume`` (``auto`` or a
+store directory) resumes training from its latest epoch, and gives the
+test protocols the latest classifier checkpoint of a store (or a file).
+Single process; runs on ``cuda`` unless the caller passes
+``device="cpu"``, and a missing card is an error.
 
 Usage:
     python -m dualvar_tpu_torch.train.classifier --preset paper_table1_ucf_ft \\
@@ -29,8 +32,8 @@ Usage:
     python -m dualvar_tpu_torch.train.classifier --preset smoke --device cpu \\
         --test retrieval
 
-Not ported yet (ROADMAP.md): resume of training and best-k retention (A.11),
-multi-process runs (A.10), the metrics writer (A.12), ``--remat``,
+Not ported yet (ROADMAP.md): multi-process runs (A.10), the metrics
+writer (A.12), ``--remat``,
 ``--fast_decode 1`` and ``--optim adam`` (A.13).
 """
 
@@ -49,7 +52,8 @@ import torch
 
 from ..aug.pipeline import (AugConfig, classifier_train_batch, eval_batch,
                             tenclip_batch, tencrop_batch)
-from ..core.checkpoint import load_pretrained_backbone, load_state_dict
+from ..core.checkpoint import (CheckpointStore, load_pretrained_backbone,
+                               load_state_dict)
 from ..core.config import CLASSIFIER_PRESETS, ClassifierConfig
 from ..core.logging import get_logger
 from ..core.meters import AverageMeter, ProgressMeter
@@ -60,7 +64,8 @@ from ..data.loader import (ClassifierDataset, HostLoader, JpegFrameSource,
 from ..models.backbones import select_backbone
 from ..models.heads import LinearClassifier
 from ..models.ssl.losses import cross_entropy_from_logits, topk_accuracy
-from .pretrain import _AUTOCAST, _override, _resolve_device, make_optimizer
+from .pretrain import (_AUTOCAST, _override, _resolve_device, make_optimizer,
+                       resume_training, training_state)
 
 
 def build_model(cfg: ClassifierConfig, seed: int = 0) -> LinearClassifier:
@@ -252,14 +257,11 @@ def setup_training(cfg: ClassifierConfig, device: str | torch.device = "cuda",
 def train(cfg: ClassifierConfig, max_steps: int | None = None,
           device: str | torch.device = "cuda") -> dict[str, float]:
     """Train loop with validation every ``eval_freq`` epochs (and at the
-    end), each validation saving the classifier to
-    ``model/epoch{epoch}.pth.tar`` in the pretrain checkpoint's format.
-    Returns the last logged step's metrics and ``val_top1``."""
+    end), each validation saving a checkpoint of the pretrain trainer's
+    fields to the ``model/`` store, ranked by validation accuracy.
+    ``cfg.run.resume`` goes on from the latest epoch of a store. Returns the
+    last logged step's metrics and ``val_top1``."""
     device = _resolve_device(device)
-    if cfg.run.resume:
-        raise NotImplementedError(
-            "resuming classifier training needs the checkpoint store "
-            "(ROADMAP.md A.11); --resume is read by the test protocols only")
     exp_path = set_path(cfg)
     logger = get_logger(os.path.join(exp_path, "log"))
     logger.info(f"Classifier to {cfg.num_class} classes with "
@@ -281,12 +283,20 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
     logger.info(f"=> batch {cfg.optim.batch_size}; {steps_per_epoch} "
                 "steps/epoch")
 
+    store = CheckpointStore(os.path.join(exp_path, "model"),
+                            async_save=cfg.run.async_ckpt)
+    start_epoch = cfg.optim.start_epoch
     best_acc = 0.0
-    global_step = cfg.optim.start_epoch * steps_per_epoch
+    global_step = start_epoch * steps_per_epoch
+    if cfg.run.resume:
+        resumed = resume_training(cfg.run.resume, store, model, optimizer,
+                                  scheduler, generator, logger)
+        if resumed:
+            start_epoch, global_step, best_acc = resumed
     final: dict[str, float] = {}
     done = False
     try:
-        for epoch in range(cfg.optim.start_epoch, cfg.optim.epochs):
+        for epoch in range(start_epoch, cfg.optim.epochs):
             meters = {k: AverageMeter(k, ":.4f")
                       for k in ("loss", "top1", "top5")}
             progress = ProgressMeter(
@@ -331,21 +341,23 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
                     f"Acc@1: {val_acc:.4f} Acc@5: {sums['top5'] / n:.4f}")
                 final["val_top1"] = val_acc
                 best_acc = max(best_acc, val_acc)
-                path = os.path.join(exp_path, "model",
-                                    f"epoch{epoch}.pth.tar")
-                torch.save({
-                    "epoch": epoch,
-                    "state_dict": model.state_dict(),
-                    "best_acc": best_acc,
-                    "optimizer": optimizer.state_dict(),
-                    "iteration": global_step,
-                }, path)
-                logger.info(f"saved checkpoint {path} (acc {val_acc:.4f})")
+                saved = store.save(epoch, training_state(
+                    model, optimizer, scheduler, generator, epoch,
+                    global_step, best_acc), {"acc": val_acc})
+                if saved:
+                    logger.info(f"saved checkpoint epoch {epoch} "
+                                f"(acc {val_acc:.4f})")
+                else:
+                    logger.info(
+                        f"[warning] checkpoint epoch {epoch} not saved: "
+                        f"the store already holds epoch "
+                        f"{store.latest_epoch()}")
             if done:
                 break
     finally:
         loader.close()
         val_loader.close()
+        store.close()
     return final
 
 
@@ -360,8 +372,8 @@ def _test_loader(cfg: ClassifierConfig, dataset) -> HostLoader:
 
 def _load_test_state(cfg: ClassifierConfig, model: LinearClassifier,
                      logger) -> None:
-    """``--resume``: a classifier checkpoint ``train`` wrote (file or
-    ``model/`` directory, newest epoch); else ``--pretrain``: the graft;
+    """``--resume``: a classifier checkpoint ``train`` wrote (a file, or the
+    latest epoch of a ``model/`` store); else ``--pretrain``: the graft;
     else the random init."""
     if cfg.run.resume:
         model.load_state_dict(load_state_dict(cfg.run.resume))
@@ -625,8 +637,9 @@ def main(argv: list[str] | None = None):
     p.add_argument("--save_freq", type=int, default=None)
     p.add_argument("--pretrain", default=None)
     p.add_argument("--resume", default=None,
-                   help="a classifier checkpoint for --test; resuming "
-                        "training is not ported (ROADMAP.md A.11): raises")
+                   help="train: 'auto' (this run's model/ store) or a store "
+                        "directory to go on from; --test: a classifier "
+                        "checkpoint file or store directory")
     p.add_argument("--dirname", default=None,
                    help="retrieval feature-dump dir under the experiment "
                         "path (reference classifier.py:77; default 'feature')")
@@ -646,10 +659,6 @@ def main(argv: list[str] | None = None):
     if args.optim is not None and args.optim != "sgd":
         raise NotImplementedError(
             f"--optim {args.optim}: only sgd is ported (ROADMAP.md A.13)")
-    if args.resume and not args.test:
-        raise NotImplementedError(
-            "--resume of training needs the checkpoint store (ROADMAP.md "
-            "A.11); --resume is read by --test only")
 
     cfg = CLASSIFIER_PRESETS[args.preset]
     num_class_by_dataset = {"ucf101": 101, "hmdb51": 51}

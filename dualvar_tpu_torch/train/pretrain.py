@@ -4,26 +4,35 @@ Counterpart of ``dualvar_tpu/train/pretrain.py``. One train step: uint8 batch
 -> on-device augmentation (the fused CUDA kernel) -> model forward (all
 losses; for MoCo also the key encoder's momentum update and the enqueue) ->
 backward -> SGD update of the task's trainable parameters -> metric scalars.
-The checkpoint's ``state_dict`` is the whole model: for MoCo the query and
-key encoders, both queues and the pointer. Runs on ``cuda`` unless
-the caller passes ``device="cpu"``; a missing card is an error, never a
-silent fall back to the CPU.
+Checkpoints go through ``core/checkpoint.py:CheckpointStore`` under
+``model/`` (``latest/`` and ``best/``, ranked by the clip accuracy). Each
+holds the epoch, the iteration, the best accuracy, the model's
+``state_dict`` (for MoCo the query and key encoders, both queues and the
+pointer), the optimizer's and the scheduler's ``state_dict`` and the run
+generator's state. ``--resume auto`` (this run's store) or ``--resume
+<dir>`` restores all of it and goes on from the next epoch; ``--pretrain
+<checkpoint>`` loads the weights only, every entry whose key and shape
+match. Runs on ``cuda`` unless the caller passes ``device="cpu"``; a
+missing card is an error, never a silent fall back to the CPU.
 
 Usage:
     python -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
         --synthetic 1 --max_steps 20
     python -m dualvar_tpu_torch.train.pretrain --preset paper_table2_moco_r21d \\
         --mode clip-sr-dtw --synthetic 1 --max_steps 20
+    python -m dualvar_tpu_torch.train.pretrain --preset s3dg_k400 \\
+        --synthetic 1 --resume auto
     python -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
         --data_root ... --db_path ...
 
-Not ported yet (ROADMAP.md): resume, ``--pretrain`` weight loading, best-k
-checkpoint retention, ``--visualize``, the TensorBoard metrics writer.
+Not ported yet (ROADMAP.md): ``--visualize``, the TensorBoard metrics
+writer, ``--profile_steps``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import math
 import os
@@ -33,6 +42,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..aug.pipeline import AugConfig, pretrain_batch
+from ..core.checkpoint import (CheckpointStore, load_state_dict,
+                               merge_matching_leaves)
 from ..core.config import PRETRAIN_PRESETS, PretrainConfig
 from ..core.logging import get_logger
 from ..core.meters import AverageMeter, MeterBank, ProgressMeter
@@ -196,9 +207,83 @@ def setup_training(cfg: PretrainConfig,
                                           len(loader))
     train_step = make_train_step(task, optimizer, scheduler, aug_cfg,
                                  _AUTOCAST[cfg.model.dtype])
-    generator = torch.Generator().manual_seed(cfg.run.seed)
+    # on the device: the augmentation's draws and the segment shuffles are
+    # made there, with no copy from the host
+    generator = torch.Generator(device=device).manual_seed(cfg.run.seed)
     return TrainSetup(task, model, loader, optimizer, scheduler, train_step,
                       generator)
+
+
+def training_state(model, optimizer, scheduler, generator, epoch: int,
+                   iteration: int, best_acc: float) -> dict:
+    """What a checkpoint holds: everything a resumed run needs to go on as
+    the uninterrupted run would."""
+    sched = scheduler.state_dict()
+    # a plain dict: torch.load's weights-only reader rebuilds a Counter's
+    # items as its keys
+    sched["milestones"] = dict(sched["milestones"])
+    return {"epoch": epoch, "iteration": iteration, "best_acc": best_acc,
+            "state_dict": model.state_dict(),
+            "optimizer": optimizer.state_dict(), "scheduler": sched,
+            "generator": generator.get_state()}
+
+
+def restore_training_state(ckpt: dict, model, optimizer, scheduler,
+                           generator) -> None:
+    """Load a checkpoint of ``training_state`` into the run's objects (the
+    optimizer's state moves to its parameters' device)."""
+    model.load_state_dict(ckpt["state_dict"])
+    optimizer.load_state_dict(ckpt["optimizer"])
+    sched = dict(ckpt["scheduler"])
+    sched["milestones"] = collections.Counter(sched["milestones"])
+    scheduler.load_state_dict(sched)
+    generator.set_state(ckpt["generator"])
+
+
+def resume_training(resume: str, store: CheckpointStore, model, optimizer,
+                    scheduler, generator, logger):
+    """``--resume auto`` (this run's ``store``) or ``--resume <dir>`` (a
+    store that must hold a checkpoint): the latest checkpoint restored into
+    the run's objects. Returns (next epoch, iteration, best accuracy), or
+    None where ``auto`` finds no checkpoint."""
+    source = store
+    if resume != "auto":
+        source = CheckpointStore(resume) if os.path.isdir(resume) else None
+        if source is None or source.latest_epoch() is None:
+            raise FileNotFoundError(
+                f"--resume {resume!r}: no checkpoint there")
+    last = source.latest_epoch()
+    if last is None:
+        logger.info("[warning] no checkpoint found, training from scratch")
+        return None
+    ckpt = source.restore(last)
+    restore_training_state(ckpt, model, optimizer, scheduler, generator)
+    logger.info(f"=> resumed from epoch {last} (iteration "
+                f"{ckpt['iteration']}) of {source.directory}")
+    return last + 1, ckpt["iteration"], ckpt["best_acc"]
+
+
+def load_pretrain_weights(model: torch.nn.Module, path: str,
+                          logger=None) -> dict[str, list[str]]:
+    """``--pretrain``: a weights-only, tolerant load of the checkpoint at
+    ``path`` (file or directory) into ``model`` — every entry whose key and
+    shape match, MoCo's key encoder, queues and pointer included; the
+    optimizer, the scheduler and the epoch start fresh (the JAX package's
+    ``_load_pretrain_weights``). A SimCLR or backbone-only checkpoint loads
+    into MoCo's query encoder, a MoCo one's query encoder into a SimCLR
+    model. Returns the report of ``merge_matching_leaves``."""
+    dst, src = model.state_dict(), load_state_dict(path)
+    q = "encoder_q."
+    if any(k.startswith(q) for k in dst) != any(k.startswith(q) for k in src):
+        # across families: MoCo's query encoder holds what a SimCLR model
+        # (or a backbone alone) holds, as in the JAX package's trees
+        src = ({q + k: v for k, v in src.items()}
+               if any(k.startswith(q) for k in dst)
+               else {k[len(q):]: v for k, v in src.items()
+                     if k.startswith(q)})
+    merged, report = merge_matching_leaves(dst, src, logger)
+    model.load_state_dict(merged)
+    return report
 
 
 def train(cfg: PretrainConfig, max_steps: int | None = None,
@@ -226,9 +311,20 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
     n_params = sum(p.numel() for p in task.parameters())
     logger.info(f"params: {n_params / 1e6:.2f}M")
 
+    store = CheckpointStore(os.path.join(exp_path, "model"),
+                            keep_all=cfg.run.keep_all,
+                            async_save=cfg.run.async_ckpt)
     start_epoch = cfg.optim.start_epoch
     best_acc = 0.0
     global_step = start_epoch * steps_per_epoch
+    if cfg.run.resume:
+        resumed = resume_training(cfg.run.resume, store, model, optimizer,
+                                  scheduler, generator, logger)
+        if resumed:
+            start_epoch, global_step, best_acc = resumed
+    elif cfg.run.pretrain:
+        load_pretrain_weights(model, cfg.run.pretrain, logger)
+        logger.info(f"=> loaded pretrain weights from '{cfg.run.pretrain}'")
     final_metrics: dict[str, float] = {}
     done = False
     try:
@@ -289,20 +385,22 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
                 train_acc = bank.accs["clip"].avg if "clip" in bank.accs else 0.0
                 best_acc = max(best_acc, train_acc)
                 if (epoch + 1) % cfg.run.save_freq == 0 or last:
-                    path = os.path.join(exp_path, "model",
-                                        f"epoch{epoch}.pth.tar")
-                    torch.save({
-                        "epoch": epoch,
-                        "state_dict": model.state_dict(),
-                        "best_acc": best_acc,
-                        "optimizer": optimizer.state_dict(),
-                        "iteration": global_step,
-                    }, path)
-                    logger.info(f"saved checkpoint {path} (acc {train_acc:.4f})")
+                    saved = store.save(epoch, training_state(
+                        model, optimizer, scheduler, generator, epoch,
+                        global_step, best_acc), {"acc": train_acc})
+                    if saved:
+                        logger.info(f"saved checkpoint epoch {epoch} "
+                                    f"(acc {train_acc:.4f})")
+                    else:
+                        logger.info(
+                            f"[warning] checkpoint epoch {epoch} not saved: "
+                            f"the store already holds epoch "
+                            f"{store.latest_epoch()}")
             if done:
                 break
     finally:
         loader.close()
+        store.close()
 
     logger.info(
         f"Training from ep {start_epoch} to ep {cfg.optim.epochs} finished")
@@ -315,7 +413,7 @@ def _override(group, args, names):
     return dataclasses.replace(group, **kw) if kw else group
 
 
-def main():
+def main(argv: list[str] | None = None):
     """Flag surface mirrors the JAX trainer's (reference parser
     pretrain.py:90-164), cut to what this package supports; a preset
     supplies the defaults, every flag overrides it."""
@@ -382,11 +480,18 @@ def main():
     p.add_argument("--print_freq", type=int, default=None)
     p.add_argument("--eval_freq", type=int, default=None)
     p.add_argument("--save_freq", type=int, default=None)
+    p.add_argument("--resume", default=None,
+                   help="'auto' (this run's model/ store) or a store "
+                        "directory: go on from its latest epoch")
+    p.add_argument("--pretrain", default=None,
+                   help="checkpoint file or directory: weights only")
+    p.add_argument("--async_ckpt", type=int, default=None, choices=[None, 0, 1],
+                   help="overlap checkpoint writes with training (default 1)")
     # run control
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
     cfg = PRETRAIN_PRESETS[args.preset]
     if args.packed_encode is not None:
@@ -419,8 +524,11 @@ def main():
                    "optim")),
         run=_override(cfg.run, args,
                       ("prefix", "name_prefix", "seed", "print_freq",
-                       "eval_freq", "save_freq")),
+                       "eval_freq", "save_freq", "resume", "pretrain")),
     )
+    if args.async_ckpt is not None:
+        cfg = cfg.replace(run=dataclasses.replace(
+            cfg.run, async_ckpt=bool(args.async_ckpt)))
     train(cfg, max_steps=args.max_steps, device=args.device)
 
 

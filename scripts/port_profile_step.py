@@ -12,6 +12,7 @@ norm's sums through the channel-sum kernel, as in training.
     python3 scripts/port_profile_step.py --batch_size 32 [--channels_last 1]
     python3 scripts/port_profile_step.py --preset paper_table2_moco_r21d \\
         --mode clip-sr-dtw --batch_size 32
+    python3 scripts/port_profile_step.py --preset s3dg_k400 --batch_size 8
     DUALVAR_BN_STATS=pallas python3 scripts/port_profile_step.py \\
         --net r3d --model simclr_naked --batch_size 32
 
@@ -112,6 +113,7 @@ def main() -> int:
         "ms_per_step_profiled": wall_ms / args.steps,
         "device_ms_per_step": device_ms / args.steps,
         "device_busy_share": device_ms / wall_ms,
+        "kernels_per_step": sum(r[2] for r in rows) / args.steps,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }))
     if device_ms == 0:

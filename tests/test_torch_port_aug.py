@@ -22,7 +22,7 @@ from dualvar_tpu.aug import functional as JF
 from dualvar_tpu.ops.aug_fused import aug_fused as jax_aug_fused
 from dualvar_tpu_torch.aug import functional as TF
 from dualvar_tpu_torch.aug.pipeline import (AugConfig, _draw_clip_params,
-                                            pretrain_batch,
+                                            _use_fused, pretrain_batch,
                                             pretrain_batch_fused)
 from dualvar_tpu_torch.ops.aug_fused import (_band_plan, aug_fused,
                                              aug_fused_plain)
@@ -272,6 +272,14 @@ def test_pretrain_batch_dispatch_and_unported_modes():
     with pytest.raises(ValueError, match="auto/on/off"):
         pretrain_batch(torch.Generator(), frames,
                        AugConfig(img_dim=SIZE, seq_len=T, fused="maybe"))
+    # 'off' on a CUDA device raises: the plain version never stands in for
+    # the kernel on the card ('auto' and 'on' take the kernel there)
+    cuda = torch.device("cuda")
+    with pytest.raises(NotImplementedError, match="per-frame"):
+        _use_fused(AugConfig(fused="off"), cuda)
+    assert _use_fused(AugConfig(fused="auto"), cuda)
+    assert _use_fused(AugConfig(fused="on"), cuda)
+    assert not _use_fused(AugConfig(fused="off"), torch.device("cpu"))
 
 
 def _w_pass(x, k):

@@ -34,7 +34,8 @@ def test_cli_trains_and_tests_on_the_cpu(tmp_path):
     run = _cli(tmp_path, "--max_steps", "2")
     assert run.returncode == 0, run.stderr[-2000:]
     exp = tmp_path / "log" / "smoke" / "ft" / "exp" / "ucf"
-    ckpt = torch.load(exp / "model" / "epoch0.pth.tar", map_location="cpu")
+    ckpt = torch.load(exp / "model" / "latest" / "epoch0.pth.tar",
+                      map_location="cpu")
     assert ckpt["iteration"] == 2 and "final_fc.weight" in ckpt["state_dict"]
     run = _cli(tmp_path, "--test", "retrieval", "--resume",
                str(exp / "model"))
@@ -45,8 +46,7 @@ def test_cli_trains_and_tests_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("args", [
-    ("--optim", "adam"), ("--remat",), ("--fast_decode", "1"),
-    ("--resume", "some/model")])
+    ("--optim", "adam"), ("--remat",), ("--fast_decode", "1")])
 def test_cli_refuses_what_is_not_ported(args):
     """Refused before any work, never taken some other way."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.1"):
@@ -54,10 +54,13 @@ def test_cli_refuses_what_is_not_ported(args):
 
 
 def test_train_refuses_resume_and_a_missing_card(tmp_path):
+    """``--resume <dir>`` of a directory that holds no checkpoint is an
+    error, not a run from scratch."""
     cfg = CLASSIFIER_PRESETS["smoke"]
     cfg = dataclasses.replace(cfg, run=dataclasses.replace(
-        cfg.run, log_root=str(tmp_path), resume="some/model"))
-    with pytest.raises(NotImplementedError, match="A.11"):
+        cfg.run, log_root=str(tmp_path),
+        resume=str(tmp_path / "some" / "model")))
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         TC.train(cfg, max_steps=1, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

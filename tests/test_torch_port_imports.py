@@ -42,6 +42,11 @@ print("\\n".join(names))
     assert {"dualvar_tpu_torch.ops.aug_fused", "dualvar_tpu_torch.ops.soft_dtw",
             "dualvar_tpu_torch.ops.bn_stats", "dualvar_tpu_torch.ops.conv_fused",
             "dualvar_tpu_torch.models.backbones.r3d",
+            "dualvar_tpu_torch.models.backbones.c3d",
+            "dualvar_tpu_torch.models.backbones.s3dg",
+            "dualvar_tpu_torch.models.backbones.resnet_2d3d",
+            "dualvar_tpu_torch.core.checkpoint",
+            "dualvar_tpu_torch.core.convert",
             "dualvar_tpu_torch.models.ssl.moco",
             "dualvar_tpu_torch.train.pretrain"} <= set(names)
     # the kernels' sources are data beside the package, not modules of it

@@ -55,7 +55,8 @@ def test_backbone_parameter_count():
     assert meta == {"feature_size": 512}
 
 
-@pytest.mark.parametrize("name", ["s3dg", "r21d_tiled", "c3d", "r2d3d18"])
+@pytest.mark.parametrize("name", ["s3dg_packed", "r21d_tiled", "s3d_packed",
+                                  "r21d_pad128"])
 def test_unported_backbones_raise_naming_the_roadmap(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         select_backbone(name)

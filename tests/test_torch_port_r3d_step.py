@@ -170,4 +170,4 @@ def test_pretrain_cli_runs_the_smoke_preset_on_cpu(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert os.path.exists(os.path.join(
         tmp_path, "log", "smoke", "pretrain", "exp", "model",
-        "epoch0.pth.tar"))
+        "latest", "epoch0.pth.tar"))

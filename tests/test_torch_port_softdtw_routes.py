@@ -255,7 +255,7 @@ def test_train_step_of_smoke_moco_with_four_segments_on_cpu(tmp_path):
     assert TD.soft_dtw_backward.launches == 0
     state = torch.load(os.path.join(
         tmp_path, cfg.run.prefix, "pretrain", cfg.run.name_prefix, "model",
-        "epoch0.pth.tar"))["state_dict"]
+        "latest", "epoch0.pth.tar"))["state_dict"]
     B, d = cfg.optim.batch_size, cfg.model.series_dim
     assert state["series_queue"].shape == (cfg.model.moco_k, 4 * d)
     written = state["series_queue"][:B].reshape(B, 4, d)

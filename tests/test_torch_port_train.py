@@ -115,9 +115,9 @@ def test_train_entry_point_runs_on_cpu(tmp_path):
     assert all(np.isfinite(v) for v in metrics.values())
     ckpt = torch.load(os.path.join(
         tmp_path, cfg.run.prefix, "pretrain", cfg.run.name_prefix, "model",
-        "epoch0.pth.tar"))
+        "latest", "epoch0.pth.tar"))
     assert set(ckpt) == {"epoch", "state_dict", "best_acc", "optimizer",
-                         "iteration"}
+                         "scheduler", "generator", "iteration"}
     assert ckpt["iteration"] == 2 and ckpt["epoch"] == 0
     task = make_task(cfg.model)
     task.model.load_state_dict(ckpt["state_dict"])  # strict
@@ -135,7 +135,7 @@ def test_train_refuses_a_missing_card_and_unported_models(tmp_path):
         make_task(dataclasses.replace(cfg.model, model="byol"))
     # a model config that names a backbone still to be ported
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_task(dataclasses.replace(cfg.model, net="s3dg"))
+        make_task(dataclasses.replace(cfg.model, net="s3dg_packed"))
 
 
 @pytest.mark.parametrize("model,n_views,cls", [
@@ -183,7 +183,7 @@ def test_train_runs_smoke_moco_on_cpu(tmp_path, mode):
     assert all(np.isfinite(v) for v in metrics.values())
     ckpt = torch.load(os.path.join(
         tmp_path, cfg.run.prefix, "pretrain", cfg.run.name_prefix, "model",
-        "epoch0.pth.tar"))
+        "latest", "epoch0.pth.tar"))
     state = ckpt["state_dict"]
     B, K = cfg.optim.batch_size, cfg.model.moco_k
     # the checkpoint carries the key encoder, both queues and the pointer

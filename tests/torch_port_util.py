@@ -2,7 +2,10 @@
 filled with seeded numpy values, so both packages start from the same
 weights without compiling a JAX initialiser."""
 
+import contextlib
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
@@ -122,3 +125,129 @@ def classifier_test_configs(tmp_path):
     torch.save({"epoch": 0, "state_dict": state}, ckpt)
     model.load_state_dict(state)
     return jcfg, pcfg, jmodel, variables, model.eval()
+
+
+# -- backbones against the JAX package -------------------------------------
+
+# the backbone band of tests/test_torch_parity.py: float32 convolutions
+# summed in another order through up to 53 conv + BN layers
+BACKBONE_ATOL, BACKBONE_RTOL = 2e-4, 1e-3
+# float64 on both sides; the JAX gradient reaches the comparison through
+# from_jax_variables, which stores float32: its rounding, 6e-8 of the scale
+BACKBONE_GRAD_ATOL = 1e-6
+# a parameter whose effect a train-mode batch norm downstream removes (a
+# conv bias ahead of a batch norm; S3D's Mixed_4f.branch1_1.bn2.bias, under
+# the pool to 1x1x1, 1x1 convs and batch norms of Mixed_5b) has a gradient
+# of 0 up to the float64 rounding of the larger ones it sums: 3.7e-9 there
+# against a largest gradient of 3e8, the two packages' values 3.6e-9 apart;
+# C3D's conv biases 1e-13 against 97, 1.1e-13 apart. Such a gradient is
+# compared on this share of the network's largest gradient instead of its
+# own largest entry: within 1e-14 of the largest gradient, where float64
+# rounding over some 1e5 summed terms lands.
+GRAD_FLOOR = 1e-8
+
+
+@contextlib.contextmanager
+def x64():
+    """JAX's float64 switched on inside the block."""
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def backbone_pair(net, size, seed):
+    """(net, JAX backbone, params, batch_stats, port backbone) with the same
+    numpy-made weights; ``size`` is the (B, T, S) of the inputs."""
+    from dualvar_tpu.models.backbones import select_backbone as jax_backbone
+    from dualvar_tpu_torch.core.convert import from_jax_variables
+    from dualvar_tpu_torch.models.backbones import select_backbone
+
+    _, T, S = size
+    jm, _ = jax_backbone(net)
+    params, stats = numpy_variables(jm, jnp.zeros((1, T, S, S, 3)),
+                                    seed=seed, train=False)
+    tm, _ = select_backbone(net)
+    tm.load_state_dict(from_jax_variables(params, stats, module=tm))
+    return net, jm, params, stats, tm
+
+
+def backbone_input(size, seed):
+    """A numpy clip batch of ``size`` (B, T, S): (NCDHW, NTHWC)."""
+    B, T, S = size
+    x = np.random.default_rng(seed).normal(
+        size=(B, 3, T, S, S)).astype(np.float32)
+    return x, x.transpose(0, 2, 3, 4, 1)
+
+
+def _ncdhw(y):
+    return np.asarray(y).transpose(0, 4, 1, 2, 3)
+
+
+def check_backbone_eval_forward(net, jm, params, stats, tm, size, seed):
+    """Eval mode (running statistics), float32 on both sides, within the
+    backbone band. Returns the port's output."""
+    x_t, x_j = backbone_input(size, seed)
+    want = _ncdhw(jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x_j)))
+    with torch.no_grad():
+        got = tm.eval()(torch.from_numpy(x_t))
+    assert got.shape == want.shape, net
+    np.testing.assert_allclose(got.numpy(), want, atol=BACKBONE_ATOL,
+                               rtol=BACKBONE_RTOL)
+    return got
+
+
+def check_backbone_train_step_float64(net, jm, params, stats, tm, size,
+                                      seed):
+    """One train-mode step of sum(features * w), both packages in float64:
+    the features (the backbone band), the running mean and biased running
+    variance folded in (1e-6), and the gradient of every parameter
+    (``BACKBONE_GRAD_ATOL`` of its largest entry, or of ``GRAD_FLOOR`` of
+    the network's largest gradient where that is more). Float64 because the JAX package's float32 train-mode forward
+    is no oracle either: for r50 at (2, 8, 32), whose last 16 batch norms
+    see 16 values a channel, it lies 3.3e-3 from its own float64 result
+    (the port's float32: 8.2e-4)."""
+    from dualvar_tpu.models.backbones import select_backbone as jax_backbone
+    from dualvar_tpu_torch.core.convert import from_jax_variables
+
+    x_t, x_j = backbone_input(size, seed)
+    jm64, _ = jax_backbone(net, dtype=jnp.float64)
+    with torch.no_grad():
+        out_shape = tm.eval()(torch.from_numpy(x_t)).shape
+    w = np.random.default_rng(seed + 1).normal(size=out_shape)
+
+    def loss_fn(p, s, x):
+        y, upd = jm64.apply({"params": p, "batch_stats": s}, x, train=True,
+                            mutable=["batch_stats"])
+        return jnp.sum(y * jnp.asarray(w.transpose(0, 2, 3, 4, 1))), (
+            y, upd["batch_stats"])
+
+    def f64(tree):
+        return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
+
+    with x64():
+        grads, (y, new_stats) = jax.tree.map(np.asarray, jax.jit(jax.grad(
+            loss_fn, has_aux=True))(f64(params), f64(stats),
+                                    jnp.asarray(x_j, jnp.float64)))
+    tm.double().train()
+    got = tm(torch.from_numpy(x_t).double())
+    (got * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), _ncdhw(y),
+                               atol=BACKBONE_ATOL, rtol=BACKBONE_RTOL)
+    want_state = from_jax_variables(params, new_stats)
+    for key, val in tm.state_dict().items():
+        if "running_" in key:
+            np.testing.assert_allclose(val.numpy(), want_state[key].numpy(),
+                                       atol=1e-6, rtol=1e-6, err_msg=key)
+    want = from_jax_variables(grads, {})
+    named = dict(tm.named_parameters())
+    assert set(named) == set(want)
+    largest = max(float(v.abs().max()) for v in want.values())
+    for key, p in named.items():
+        ref = want[key].double().numpy()
+        scale = max(np.abs(ref).max(), GRAD_FLOOR * largest)
+        assert scale > 0, key
+        np.testing.assert_allclose(p.grad.numpy() / scale, ref / scale,
+                                   atol=BACKBONE_GRAD_ATOL, err_msg=key)
