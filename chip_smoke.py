@@ -55,6 +55,20 @@ Phases, each fatal on failure (non-zero exit):
      (queues, pointer and key encoder restored bitwise);
    - the backbone steps: ``paper_table1_k400 --net s3d / c3d / r2d3d18 /
      r50``, two steps each;
+   - path D, data parallel (the card is one, so a group of one over NCCL):
+     the batch norm's routes under the group at path R's first-block shape,
+     float32 and bf16 (the one-pass route bitwise as without a group,
+     ``_SyncBN`` and ATen's batch norm against float64); ``python -m
+     torch.distributed.run --standalone --nproc_per_node 1`` of the pretrain
+     CLI (``paper_table1_k400``, B=8, 3 steps, ``DUALVAR_BN_STATS=pallas``),
+     which must exit 0 and end bitwise as the same steps in this process
+     without a group; then this process joins a group of one itself
+     (torchrun's variables, ``init_distributed``) for path R under the
+     variable (``channel_sums`` 24 a step, running statistics bitwise as
+     without a group) and one MoCo epoch in mode clip-sr-dtw (pointer B a
+     step, soft-DTW twice a step); the step time of ``paper_table1_k400`` at
+     B=8 (five windows) and 32 (three) without and with the group, with
+     the collectives a step by kind;
    then step times at B=8 and B=32 (MoCo in ``clip-sr-tc`` and
    ``clip-sr-dtw``, at n_series 2 and 16: the difference is what soft-DTW
    and its cost tensor take), of path R at B=8, 32 and 128 with the
@@ -1017,6 +1031,10 @@ def describe(cfg) -> str:
     return f"{cfg.run.prefix} mode {cfg.model.mode}"
 
 
+# the metrics of the last run_path
+LAST_METRICS: dict = {}
+
+
 def run_path(torch, label: str, cfg, steps: int, want_launches: dict,
              metric_keys: tuple) -> tuple[dict, dict]:
     """train() of ``cfg``'s trainer for ``steps`` steps with every launch
@@ -1030,6 +1048,8 @@ def run_path(torch, label: str, cfg, steps: int, want_launches: dict,
     for wrapper in counters.values():
         wrapper.launches = 0
     metrics = trainer.train(cfg, max_steps=steps, device="cuda")
+    LAST_METRICS.clear()
+    LAST_METRICS.update(metrics)
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in counters.items()}
     if not is_classifier(cfg):
@@ -1314,6 +1334,9 @@ def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
         setup.train_step(*inputs, setup.generator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    from dualvar_tpu_torch.core import dist
+
+    dist.collectives.clear()
     window_ms = []
     for _ in range(windows):
         tic = time.perf_counter()
@@ -1341,7 +1364,10 @@ def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
                 "n_series": cfg.model.n_series}
     print("step time: " + json.dumps({
         **what, "batch_size": batch_size, "steps": n, "windows": windows,
-        "dtype": cfg.model.dtype,
+        "dtype": cfg.model.dtype, "world_size": dist.world_size(),
+        "backend": torch.distributed.get_backend() if dist.active() else None,
+        "collectives_per_step": {k: v / (n * windows)
+                                 for k, v in dist.collectives.items()},
         "ms_per_step": ms, "clips_per_s": batch_size / ms * 1e3,
         "window_ms_per_step": window_ms,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -1961,6 +1987,289 @@ def check_f32_classifier(torch, cfg, state: dict) -> None:
         fail("f32 check, path C: card and CPU forwards disagree")
 
 
+# path D: data parallel across processes. The card is one, so the group
+# is of one process over NCCL: every collective runs, on the real backend
+PATH_D_STEPS = 3
+PATH_D_MOCO_VIDEOS = 16
+# batch norms of R(2+1)D-18: the stem's two, two a (2+1)D conv, and the
+# shortcuts'
+R2P1D_BATCH_NORMS = 24
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def process_group(torch):
+    """This process as rank 0 of a group of one over NCCL, joined through
+    ``init_distributed`` from the environment torchrun would set; left and
+    the environment cleared after the block."""
+    from dualvar_tpu_torch.core import dist
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    try:
+        if not dist.init_distributed("cuda"):
+            fail("path D: init_distributed did not join a group")
+        if torch.distributed.get_backend() != "nccl":
+            fail(f"path D: backend {torch.distributed.get_backend()}, not "
+                 "nccl")
+        yield dist
+    finally:
+        dist.destroy()
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def path_d_cfg(log_root: str):
+    """The torchrun run's configuration, for a run in this process (its
+    own directory: the main path's store holds a later iteration)."""
+    cfg = smoke_cfg("paper_table1_k400", 8, log_root)
+    return cfg.replace(run=dataclasses.replace(
+        cfg.run, name_prefix="chip_smoke_path_d_single"))
+
+
+def run_torchrun(torch, log_root: str) -> tuple[dict, dict]:
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1``
+    of the pretrain CLI, ``paper_table1_k400`` on synthetic frames at B=8
+    for ``PATH_D_STEPS`` steps with ``DUALVAR_BN_STATS=pallas``; returns its
+    last checkpoint and the losses its log printed for the last step (3
+    decimals). A non-zero exit fails."""
+    import signal
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cwd = os.path.join(log_root, "torchrun")
+    os.makedirs(cwd)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DUALVAR_BN_STATS", "RANK", "WORLD_SIZE",
+                        "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = here
+    env["DUALVAR_BN_STATS"] = "pallas"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "dualvar_tpu_torch.train.pretrain",
+           "--preset", "paper_table1_k400", "--synthetic", "1",
+           "--batch_size", "8", "--max_steps", str(PATH_D_STEPS),
+           "--print_freq", "1", "--name_prefix", "path_d"]
+    tic = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail("path D: the torchrun launch did not end in 300 s:\n"
+             + out[-3000:])
+    if proc.returncode != 0:
+        fail(f"path D: the torchrun launch exited {proc.returncode}:\n"
+             + out[-3000:])
+    if "Effective batch = 8 (1 processes x 8)" not in out:
+        fail("path D: the torchrun launch logged no effective batch of 8:\n"
+             + out[-3000:])
+    import re
+
+    from dualvar_tpu_torch.core.checkpoint import checkpoint_file
+
+    ckpt = torch.load(checkpoint_file(os.path.join(
+        cwd, "log", "paper_table1_k400", "pretrain", "path_d", "model")),
+        map_location="cpu")
+    steps = [line for line in out.splitlines()
+             if "Epoch:[" in line and "total_loss" in line]
+    if len(steps) != PATH_D_STEPS:
+        fail(f"path D: the torchrun log has {len(steps)} step lines:\n"
+             + out[-3000:])
+    losses = {k: float(v) for k, v in
+              re.findall(r"(\w+_loss) (-?[0-9.]+)\.", steps[-1])}
+    print(f"path D: torchrun --nproc_per_node 1 of the pretrain CLI, "
+          f"{PATH_D_STEPS} steps of paper_table1_k400 at B=8, exit 0 in "
+          f"{time.perf_counter() - tic:.1f} s; last step's losses "
+          + json.dumps(losses), flush=True)
+    return ckpt, losses
+
+
+def check_bn_routes_at_world_one(torch) -> None:
+    """Under the group of one, at the shape of path R's first block,
+    float32 and bfloat16: the one-pass batch norm with its sums all-reduced
+    gives bitwise what it gives without a group (forward and backward);
+    ``_SyncBN`` (ATen's SyncBatchNorm functions) is held against float64,
+    beside ATen's batch norm."""
+    from dualvar_tpu_torch.models.layers import _OnePassBN, _SyncBN
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (16, 64, 16, 56, 56)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = torch.rand(64, generator=gen, device="cuda") + 0.5
+        b = torch.randn(64, generator=gen, device="cuda")
+
+        def run(fn, *extra):
+            xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+            y, mean, var = fn(xs, ws, bs, 1e-5, *extra)
+            y.backward(g)
+            return [y, mean, var, xs.grad, ws.grad, bs.grad]
+
+        synced, plain = run(_OnePassBN.apply, True), run(_OnePassBN.apply,
+                                                         False)
+        if not all(torch.equal(a, c) for a, c in zip(synced, plain)):
+            fail(f"path D: the one-pass batch norm at world size 1 differs "
+                 f"from its unsynced result ({dtype}): " + ", ".join(
+                     f"{float((a.float() - c.float()).abs().max()):.3g}"
+                     for a, c in zip(synced, plain)))
+
+        def aten(xs, ws, bs, eps):
+            y, mean, invstd = torch.native_batch_norm(
+                xs, ws, bs, None, None, True, 0.0, eps)
+            return y, mean, invstd.pow(-2) - eps
+
+        ref = bn_reference_float64(torch, x, w, b, g)
+        names = ("y", "mean", "var", "dx", "dweight", "dbias")
+        errs = {}
+        for route, outs in (("_SyncBN", run(_SyncBN.apply)),
+                            ("ATen", run(aten))):
+            for name, a, c in zip(names, outs, ref):
+                scale = float(c.abs().max())
+                err = float((a.detach().double() - c).abs().max())
+                errs[f"{route} {name}"] = err / scale
+                # float32: 1e-5 of the scale (measured under 1e-6); bf16:
+                # one ulp of it: y and dx are stored in bf16, and ATen's
+                # SyncBatchNorm functions round g*(x - mean) to the input's
+                # type before they sum it
+                tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+                if route == "_SyncBN" and not err <= tol * scale:
+                    fail(f"path D: _SyncBN {name} ({dtype}) is {err:.3g} "
+                         f"from float64, more than {tol:.3g} of {scale:.3g}")
+        print(f"path D: {dtype} at {shape}: one-pass synced == unsynced "
+              "bitwise; error over the scale against float64: " + ", ".join(
+                  f"{k} {v:.2g}" for k, v in errs.items()), flush=True)
+
+
+def bn_reference_float64(torch, x, w, b, g) -> list:
+    """Train-mode batch norm of ``x`` and its backward of ``g`` in float64:
+    y, mean, biased var, dx, dweight, dbias."""
+    x, g = x.double(), g.double()
+    dims = [0] + list(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    var, mean = torch.var_mean(x, dim=dims, correction=0)
+    inv = torch.rsqrt(var + 1e-5)
+    xhat = (x - mean.view(shape)) * inv.view(shape)
+    wd = w.double().view(shape)
+    y = xhat * wd + b.double().view(shape)
+    dbias = g.sum(dims)
+    dweight = (g * xhat).sum(dims)
+    n = x.numel() // x.shape[1]
+    dx = wd * inv.view(shape) * (g - dbias.view(shape) / n
+                                 - xhat * dweight.view(shape) / n)
+    return [y, mean, var, dx, dweight, dbias]
+
+
+def run_path_d(torch, log_root: str, r_state: dict) -> dict:
+    """Path D. The torchrun launch of the pretrain CLI against the same
+    steps in this process without a group. Then, in this process as a
+    group of one over NCCL (the launch counters live here): the batch
+    norms' routes at world size 1, path R under ``DUALVAR_BN_STATS=pallas``
+    (``channel_sums`` 24 a step, its running statistics against path R's
+    without a group), one MoCo epoch in mode clip-sr-dtw (the pointer moves
+    by B a step; soft-DTW twice a step); the collectives a step and the step
+    time of ``paper_table1_k400`` at B=8 and 32 with the group, beside the
+    same without it."""
+    from dualvar_tpu_torch.core import dist
+
+    by_run = {}
+    with process_group(torch):
+        check_bn_routes_at_world_one(torch)
+    d_ckpt, d_losses = run_torchrun(torch, log_root)
+    cfg = path_d_cfg(log_root)
+    with bn_stats_env(True):
+        _, by_run["path D, one process"] = run_path(
+            torch, "path D, one process", cfg, PATH_D_STEPS,
+            expected_launches(aug_fused=PATH_D_STEPS, channel_sums=2 * 2
+                              * R2P1D_BATCH_NORMS * PATH_D_STEPS),
+            TSV4_LOSSES)
+    s_losses = dict(LAST_METRICS)
+    from dualvar_tpu_torch.core.checkpoint import checkpoint_file
+
+    single = torch.load(checkpoint_file(os.path.join(
+        trainer_of(cfg).set_path(cfg), "model")), map_location="cpu")
+    if d_ckpt["iteration"] != PATH_D_STEPS or len(d_ckpt["generators"]) != 1:
+        fail(f"path D: torchrun checkpoint at iteration "
+             f"{d_ckpt['iteration']} with {len(d_ckpt['generators'])} "
+             "generator states")
+    if not torch.equal(d_ckpt["generators"][0], single["generator"]):
+        fail("path D: rank 0's generator did not draw what one process "
+             "draws")
+    # at world size 1 the one-pass batch norm's all-reduces, the losses'
+    # gathers and the gradient's average are identities, so the runs are
+    # the same arithmetic: bitwise (tolerance 0)
+    differ = [k for k, v in single["state_dict"].items()
+              if not torch.equal(d_ckpt["state_dict"][k], v)]
+    if differ:
+        fail(f"path D: {len(differ)} of {len(single['state_dict'])} state "
+             f"entries of the torchrun run differ from one process's, e.g. "
+             f"{differ[:3]}")
+    for key, got in d_losses.items():  # its log prints 3 decimals
+        if not abs(got - s_losses[key]) <= 5e-4 + 1e-6:
+            fail(f"path D: torchrun's last {key} {got} against one "
+                 f"process's {s_losses[key]}")
+    print(f"path D: every state entry ({len(single['state_dict'])}) of the "
+          f"torchrun run bitwise as one process's after {PATH_D_STEPS} "
+          "steps, rank 0's generator state too; its last losses as logged: "
+          + json.dumps(d_losses), flush=True)
+
+    for batch_size in (8, 32):
+        time_train_steps(torch, smoke_cfg("paper_table1_k400", batch_size,
+                                          log_root),
+                         windows=5 if batch_size == 8 else 3)
+    with process_group(torch):
+        r_cfg = path_r_cfg(8, log_root)
+        r_cfg = r_cfg.replace(run=dataclasses.replace(
+            r_cfg.run, name_prefix=r_cfg.run.name_prefix + "_path_d"))
+        with bn_stats_env(True):
+            dist.collectives.clear()
+            state, by_run["path D, path R"] = run_path(
+                torch, "path D, path R", r_cfg, TRAIN_STEPS,
+                expected_launches(
+                    aug_fused=TRAIN_STEPS,
+                    channel_sums=2 * R3D_BATCH_NORMS * TRAIN_STEPS),
+                ("clip_loss",))
+        print("path D, path R: collectives in the run "
+              f"({TRAIN_STEPS} steps, setup and saves included): "
+              + json.dumps(dict(dist.collectives)), flush=True)
+        stats = [k for k in r_state if "running_" in k]
+        if not all(torch.equal(state[k], r_state[k]) for k in stats):
+            fail("path D, path R: the one-pass running statistics differ "
+                 "from path R's without a group")
+        print(f"path D, path R: the {len(stats)} running statistics bitwise "
+              "as path R's without a group", flush=True)
+
+        m_cfg = smoke_cfg(MOCO_PRESET, 8, log_root, mode="clip-sr-dtw")
+        m_cfg = m_cfg.replace(
+            data=dataclasses.replace(m_cfg.data,
+                                     synthetic_videos=PATH_D_MOCO_VIDEOS),
+            optim=dataclasses.replace(m_cfg.optim, epochs=1),
+            run=dataclasses.replace(m_cfg.run, name_prefix=m_cfg.run
+                                    .name_prefix + "_path_d"))
+        steps = PATH_D_MOCO_VIDEOS // 8
+        m_state, by_run["path D, MoCo epoch"] = run_path(
+            torch, "path D, MoCo epoch", m_cfg, steps,
+            expected_launches(aug_fused=steps, soft_dtw_fwd=2 * steps,
+                              soft_dtw_bwd=2 * steps), TSV4_LOSSES)
+        check_moco_state(torch, "path D, MoCo epoch", m_cfg, m_state, steps)
+
+        for batch_size in (8, 32):
+            time_train_steps(torch, smoke_cfg("paper_table1_k400",
+                                              batch_size, log_root),
+                             windows=5 if batch_size == 8 else 3)
+    return by_run
+
+
 def main() -> int:
     start = time.perf_counter()
     import torch
@@ -2031,6 +2340,7 @@ def main() -> int:
         by_path.update(path_g)
         by_path.update(run_path_m_resume(torch, log_root))
         by_path.update(run_backbone_steps(torch, log_root))
+        by_path.update(run_path_d(torch, log_root, r_state))
         for kernel in kernels:
             # each kernel's count on the main path of the slice that ported
             # it (path R for this slice's); every path's count rides along

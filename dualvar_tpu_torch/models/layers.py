@@ -12,6 +12,11 @@ their place. Its hand-VJP one-pass batch norm (``_bn_train_fused``) is
 ``_OnePassBN`` below, taken when ``DUALVAR_BN_STATS=pallas`` selects the
 channel-sum kernel for its two reductions; otherwise ATen's batch norm runs,
 as the JAX package's default runs its XLA sums.
+
+Under a process group (``core/dist.py``) every train-mode batch norm
+normalises with the global batch's statistics, as the JAX package's
+sharded step does: the one-pass route all-reduces its sums, the default
+route takes ``torch.nn.SyncBatchNorm``'s arithmetic (``_SyncBN``).
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.bn_stats import channel_sums, use_kernel_stats
+from ..core import dist
+from ..ops.bn_stats import channel_sums, channel_sums_plain, use_kernel_stats
 
 Conv3d = nn.Conv3d
 
@@ -33,13 +39,18 @@ def _memory_format(x: torch.Tensor) -> torch.memory_format:
 
 def _sums(a: torch.Tensor, b: torch.Tensor):
     """Per-channel (sum a, sum a*b) over every axis but 1: the channel-sum
-    kernel (its plain version on the CPU), or, for float64 inputs, float64
-    torch sums, as the JAX package routes float64 away from its kernel
-    (``_use_pallas_stats``)."""
+    kernel (its plain version on the CPU), or, for float64 inputs, its plain
+    version in float64, as the JAX package routes float64 away from its
+    kernel (``_use_pallas_stats``)."""
     if a.dtype == torch.float64:
-        dims = [d for d in range(a.dim()) if d != 1]
-        return a.sum(dim=dims), (a * b).sum(dim=dims)
+        return channel_sums_plain(a, b, dim=1)
     return channel_sums(a, b, dim=1)
+
+
+def _global_sums(*sums: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Per-channel sums added over the ranks, in one all-reduce."""
+    flat = dist.all_reduce_(torch.cat(sums))
+    return flat.split([s.numel() for s in sums])
 
 
 class _OnePassBN(torch.autograd.Function):
@@ -53,13 +64,26 @@ class _OnePassBN(torch.autograd.Function):
               dbias = s_g; dx = g*A + x*C + B.
 
     Returns (y, mu, var); mu and var feed only the running statistics and
-    carry no gradient, as under the JAX package's stop_gradient."""
+    carry no gradient, as under the JAX package's stop_gradient.
+
+    ``synced``: the sums are added over the ranks before use, (s1, s2) in
+    the forward and (s_g, s_gx) in the backward, and n is the global count,
+    so each rank normalises with the global batch's statistics and takes
+    the global batch's dx (every rank's ``x`` has the same shape). dscale
+    and dbias stay this rank's share: the gradient average over the ranks
+    adds them up."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, synced=False):
         acc = torch.float64 if x.dtype == torch.float64 else torch.float32
         n = x.numel() // x.shape[1]
         s1, s2 = _sums(x, x)
+        if synced:
+            # every rank's batch has this shape (the loaders drop a short
+            # last batch): the global count stays a host number, as the
+            # local one is, and mu rounds as without a group
+            s1, s2 = _global_sums(s1, s2)
+            n *= dist.world_size()
         mu = s1 / n
         var = (s2 / n - mu * mu).clamp_min(0.0)
         inv = torch.rsqrt(var + eps)
@@ -68,6 +92,7 @@ class _OnePassBN(torch.autograd.Function):
         a = sc.to(x.dtype).view(shape)
         b = (bias.to(acc) - mu * sc).to(x.dtype).view(shape)
         ctx.save_for_backward(x, weight, mu, inv)
+        ctx.n, ctx.synced = n, synced
         ctx.mark_non_differentiable(mu, var)
         return x * a + b, mu, var
 
@@ -76,18 +101,115 @@ class _OnePassBN(torch.autograd.Function):
     def backward(ctx, g, _gmu, _gvar):
         x, weight, mu, inv = ctx.saved_tensors
         acc = mu.dtype
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         g = g.contiguous(memory_format=_memory_format(x))
         s_g, s_gx = _sums(g, x)
         s_gc = s_gx - mu * s_g  # sum g*(x - mu)
+        dscale, dbias = (s_gc * inv).to(weight.dtype), s_g.to(weight.dtype)
+        if ctx.synced:
+            s_g, s_gc = _global_sums(s_g, s_gc)
         A = inv * weight.to(acc)
         C = -A * inv * inv * s_gc / n
         B = -A * s_g / n - C * mu
         shape = (1, -1) + (1,) * (x.dim() - 2)
         dx = (g * A.to(g.dtype).view(shape) + x * C.to(x.dtype).view(shape)
               + B.to(x.dtype).view(shape))
-        return (dx, (s_gc * inv).to(weight.dtype), s_g.to(weight.dtype),
-                None)
+        return dx, dscale, dbias, None, None
+
+
+def _plain_stats(x: torch.Tensor, eps: float):
+    """Per-channel (mean, invstd) of ``x`` over every axis but 1, as
+    ``torch.batch_norm_stats`` returns them (its arithmetic, in plain
+    torch; ATen has no CPU version)."""
+    dims = [d for d in range(x.dim()) if d != 1]
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    var, mean = torch.var_mean(x.to(acc), dim=dims, correction=0)
+    return mean, torch.rsqrt(var + eps)
+
+
+class _SyncBN(torch.autograd.Function):
+    """Train-mode batch norm over the global batch with
+    ``torch.nn.SyncBatchNorm``'s arithmetic (``torch/nn/modules/
+    _functions.py``): each rank's (mean, invstd, count), all-gathered and
+    combined by ``batch_norm_gather_stats_with_counts``; y by
+    ``batch_norm_elemt``; the backward's (sum dy, sum dy*(x - mean)) from
+    ``batch_norm_backward_reduce``, all-reduced, and dx by
+    ``batch_norm_backward_elemt``. These ATen functions run on the card
+    only; CPU tensors take the same arithmetic in plain torch.
+
+    Returns (y, mean, biased var); like ``_OnePassBN``, mean and var feed
+    the running statistics only. dweight and dbias stay this rank's share,
+    as SyncBatchNorm's do."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        C = x.shape[1]
+        x = x.contiguous(memory_format=_memory_format(x))
+        if x.is_cuda:
+            mean, invstd = torch.batch_norm_stats(x, eps)
+        else:
+            mean, invstd = _plain_stats(x, eps)
+        count = torch.full((1,), x.numel() // C, dtype=mean.dtype,
+                           device=mean.device)
+        gathered = dist.all_gather(torch.cat([mean, invstd, count])[None])
+        mean_all, invstd_all, count_all = gathered.split([C, C, 1], dim=1)
+        counts = count_all.reshape(-1)
+        if x.is_cuda:
+            # running statistics to fold into at momentum 0, so that ATen
+            # takes float32 counts with a bfloat16 input (without them it
+            # wants counts in the input's type); the module folds its own
+            scratch = torch.zeros((2, C), dtype=mean.dtype, device=x.device)
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                x, mean_all, invstd_all, scratch[0], scratch[1], 0.0, eps,
+                counts)
+            y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+        else:
+            n = counts.sum()
+            mean = (counts[:, None] * mean_all).sum(0) / n
+            var_all = invstd_all.pow(-2) - eps
+            var = (counts[:, None] * (var_all + (mean_all - mean).square())
+                   ).sum(0) / n
+            invstd = torch.rsqrt(var + eps)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            scale = (invstd * weight.to(invstd.dtype)).view(shape)
+            y = ((x - mean.view(shape)) * scale
+                 + bias.to(invstd.dtype).view(shape)).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd,
+                              counts.to(torch.int32))
+        var = invstd.pow(-2) - eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g, _gmean, _gvar):
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        g = g.contiguous(memory_format=_memory_format(x))
+        if x.is_cuda:
+            sum_dy, sum_dy_xmu, dweight, dbias = \
+                torch.batch_norm_backward_reduce(g, x, mean, invstd, weight,
+                                                 True, True, True)
+        else:
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            dims = [d for d in range(x.dim()) if d != 1]
+            acc = invstd.dtype
+            xmu = x.to(acc) - mean.view(shape)
+            sum_dy = g.to(acc).sum(dims)
+            sum_dy_xmu = (g.to(acc) * xmu).sum(dims)
+            dweight = (sum_dy_xmu * invstd).to(weight.dtype)
+            dbias = sum_dy.to(weight.dtype)
+        sum_dy, sum_dy_xmu = _global_sums(sum_dy, sum_dy_xmu)
+        if x.is_cuda:
+            w = weight.to(mean.dtype) if weight.dtype != mean.dtype \
+                else weight
+            dx = torch.batch_norm_backward_elemt(
+                g, x, mean, invstd, w, sum_dy, sum_dy_xmu, counts)
+        else:
+            n = counts.sum().to(acc)
+            dx = ((g.to(acc) - (sum_dy / n).view(shape)
+                   - xmu * (invstd * invstd * sum_dy_xmu / n).view(shape))
+                  * (invstd * weight.to(acc)).view(shape)).to(x.dtype)
+        return dx, dweight, dbias, None
 
 
 class BatchNorm(nn.Module):
@@ -103,7 +225,11 @@ class BatchNorm(nn.Module):
 
     Train mode takes ATen's batch norm, or, when ``use_kernel_stats()``
     (``DUALVAR_BN_STATS=pallas``), the one-pass ``_OnePassBN`` whose sums
-    come from the channel-sum kernel. The fold is the same on both paths.
+    come from the channel-sum kernel. Under a process group the statistics
+    are the global batch's: the one-pass route adds its sums over the
+    ranks, the default route takes ``_SyncBN`` in place of ATen's batch
+    norm; without a group neither issues a collective. The fold is the
+    same on every path.
 
     State-dict keys: ``weight``, ``bias``, ``running_mean``, ``running_var``.
     """
@@ -124,9 +250,13 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight,
                 self.bias, False, 0.0, self.eps)
         stat = self.running_var.dtype
+        synced = dist.active()
         if use_kernel_stats():
             y, mean, var = _OnePassBN.apply(x, self.weight, self.bias,
-                                            self.eps)
+                                            self.eps, synced)
+            var = var.to(stat)
+        elif synced:
+            y, mean, var = _SyncBN.apply(x, self.weight, self.bias, self.eps)
             var = var.to(stat)
         else:
             # no running buffers: the fold below is done by hand from the

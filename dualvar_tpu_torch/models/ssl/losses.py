@@ -10,12 +10,23 @@ never win.
 
 The TC similarity "mean of the pairwise segment-similarity matrix" equals
 the inner product of the series-mean embeddings, and is computed that way.
+
+Under a process group (``core/dist.py``) the SimCLR losses take the
+reference's global negatives (GatherLayer, ``utils/utils.py:321``): the rows
+are this rank's clips, the columns the all-gathered global batch, whose
+gradient reaches every rank. A rank's logits are then the rows ``v*N +
+rank*B + i`` of the JAX package's (2N, 1 + 2N) logits on the global batch of
+N = W*B clips, and its loss is the mean over its rows: the mean over ranks
+(the gradient average, the logged means) is the global loss. MoCo's losses
+need no gather: their columns are the rank's own keys and the queue, which
+holds the gathered keys of earlier steps.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...core import dist
 from ...ops.soft_dtw import soft_dtw
 
 NEG_INF = -1.0e9
@@ -53,34 +64,47 @@ def _loss_dict(prefix: str, logits: torch.Tensor,
 def nt_xent_loss(features: torch.Tensor, temperature: float,
                  prefix: str = "clip_") -> dict[str, torch.Tensor]:
     """SimCLR NT-Xent over two views with every other clip as negative
-    (reference model/simclr.py:183-229). ``features``: (N, 2, dim), already
-    L2-normalised.
+    (reference model/simclr.py:183-229). ``features``: (B, 2, dim), already
+    L2-normalised; B is this rank's batch, N = W*B the global batch.
 
-    Returns ``{prefix}logits`` of width 1 + 2N: column 0 is the positive
-    (other view of the same clip), the rest is the full similarity row with
-    its own diagonal and positive entries masked to NEG_INF.
+    Returns ``{prefix}logits`` of shape (2B, 1 + 2N): column 0 is the
+    positive (other view of the same clip), the rest is the full similarity
+    row over the global batch with its own diagonal and positive entries
+    masked to NEG_INF.
     """
-    N, n_views, dim = features.shape
+    B, n_views, dim = features.shape
     assert n_views == 2, features.shape
-    # view-major layout (2N, dim): index v*N + i — reference simclr.py:193
-    f = features.transpose(0, 1).reshape(2 * N, dim)
-    return _nt_xent_from_sim(f @ f.T, N, temperature, prefix)
+    # view-major layout (2B, dim): index v*B + i — reference simclr.py:193
+    f = features.transpose(0, 1).reshape(2 * B, dim)
+    cols = _global_view_major(features)
+    return _nt_xent_from_sim(f @ cols.T, B, temperature, prefix)
 
 
-def _nt_xent_from_sim(sim: torch.Tensor, N: int, temperature: float,
+def _global_view_major(features: torch.Tensor) -> torch.Tensor:
+    """(B, 2, ...) of this rank -> the global batch's (2N, ...) in
+    view-major order, index v*N + j, with the gradient to every rank."""
+    g = dist.all_gather_with_grad(features)
+    return g.transpose(0, 1).reshape(2 * g.shape[0], *g.shape[2:])
+
+
+def _nt_xent_from_sim(sim: torch.Tensor, B: int, temperature: float,
                       prefix: str) -> dict[str, torch.Tensor]:
     """The ``[positive | masked row]`` logits and their cross-entropy from a
-    (2N, 2N) similarity matrix in view-major order."""
-    idx = torch.arange(2 * N, device=sim.device)
-    clip_id = idx % N
-    same_clip = clip_id[:, None] == clip_id[None, :]
-    diag = idx[:, None] == idx[None, :]
+    (2B, 2N) similarity matrix: this rank's rows against the global batch's
+    columns, both in view-major order."""
+    N = sim.shape[1] // 2
+    local = torch.arange(2 * B, device=sim.device)
+    # the rows' indices in the global view-major order
+    row = (local // B) * N + dist.rank() * B + local % B
+    col = torch.arange(2 * N, device=sim.device)
+    same_clip = (row % N)[:, None] == (col % N)[None, :]
+    diag = row[:, None] == col[None, :]
     pos_mask = same_clip & ~diag  # exactly one True per row for 2 views
     pos = torch.where(pos_mask, sim, 0.0).sum(dim=1, keepdim=True)
     rest = torch.where(same_clip, NEG_INF, sim)  # mask diagonal AND positive
     logits = torch.cat([pos, rest], dim=1) / temperature
     loss = cross_entropy_from_logits(
-        logits, torch.zeros(2 * N, dtype=torch.long, device=sim.device))
+        logits, torch.zeros(2 * B, dtype=torch.long, device=sim.device))
     return _loss_dict(prefix, logits, loss)
 
 
@@ -112,23 +136,27 @@ def tc_contrast_loss_global(series_features: torch.Tensor, temperature: float,
                             ) -> dict[str, torch.Tensor]:
     """Temporal-coherent contrastive loss, SimCLR (global-matrix) form
     (reference model/simclr.py:280-337). ``series_features``:
-    (N, 2, n_series, dim), per-segment L2-normalised.
+    (B, 2, n_series, dim) of this rank, per-segment L2-normalised; the
+    columns are the global batch's, as in ``nt_xent_loss``.
 
     align='mean' (paper default): video-to-video similarity is the mean
     pairwise segment similarity == inner product of segment means.
     align='dtw': soft-DTW alignment similarity over the segment sequences
     (the reference's DTW ablation; the soft-DTW kernels on the card).
     """
-    N, n_views, n_series, dim = series_features.shape
+    B, n_views, n_series, dim = series_features.shape
     assert n_views == 2, series_features.shape
     if align == "mean":
         return nt_xent_loss(series_features.mean(dim=2), temperature, prefix)
     if align != "dtw":
         raise ValueError(f"unknown align {align!r}")
-    # view-major sequence batch (2N, s, d), pairwise DTW similarity matrix
-    f = series_features.transpose(0, 1).reshape(2 * N, n_series, dim)
-    sim = dtw_alignment_similarity(f[:, None], f[None, :], gamma=dtw_gamma)
-    return _nt_xent_from_sim(sim, N, temperature, prefix)
+    # view-major sequence batches: this rank's (2B, s, d) against the global
+    # (2N, s, d), the pairwise DTW similarity matrix (2B, 2N)
+    f = series_features.transpose(0, 1).reshape(2 * B, n_series, dim)
+    cols = _global_view_major(series_features)
+    sim = dtw_alignment_similarity(f[:, None], cols[None, :],
+                                   gamma=dtw_gamma)
+    return _nt_xent_from_sim(sim, B, temperature, prefix)
 
 
 def shuffle_rank_loss(pair_features: torch.Tensor, theta: float,

@@ -13,7 +13,11 @@ its train step as explicit state (``MoCoState``); here one ``nn.Module``,
 * buffers ``queue (K, dim)`` and ``series_queue (K, n_series*series_dim)``,
   row-major ring buffers as in the JAX package (the reference stores them
   column-major, moco.py:319-323), and one shared ``queue_ptr``, written in
-  place by ``dequeue_and_enqueue`` (K % batch == 0).
+  place by ``dequeue_and_enqueue`` (K % batch == 0). Under a process group
+  (``core/dist.py``) the keys of every rank are all-gathered and enqueued
+  together, so the pointer moves by the global batch W*B, as the JAX
+  package's step on the global batch moves it; the queues stay equal on
+  every rank.
 
 ``MoCoEncoder`` is the shared encoder architecture (backbone + pool + clip
 head + series head). ``moco_naked_forward`` and ``moco_timeseries_forward``
@@ -39,6 +43,7 @@ import copy
 import torch
 from torch import nn
 
+from ...core import dist
 from ..backbones import select_backbone
 from ..heads import MLPHead
 from ..layers import global_avg_pool3d, l2_normalize
@@ -105,13 +110,14 @@ def momentum_update(encoder_q: nn.Module, encoder_k: nn.Module,
 def dequeue_and_enqueue(queue: torch.Tensor, ptr: torch.Tensor,
                         keys: torch.Tensor) -> None:
     """Ring-buffer insert of the key batch at ``ptr``, in place (reference
-    moco.py:109-126); the caller advances the pointer. Requires K % B == 0.
-    The rows are addressed through a device tensor, so the pointer is never
-    read back to the host."""
+    moco.py:109-126); the caller advances the pointer. ``keys`` is the
+    global batch's (W*B rows under a process group); requires K % (W*B) ==
+    0. The rows are addressed through a device tensor, so the pointer is
+    never read back to the host."""
     K, B = queue.shape[0], keys.shape[0]
     if K % B != 0:
         raise ValueError(
-            f"queue size {K} must be divisible by the batch size {B}")
+            f"queue size {K} must be divisible by the global batch size {B}")
     with torch.no_grad():
         rows = ptr + torch.arange(B, device=queue.device)
         queue.index_copy_(0, rows, keys.detach().to(queue.dtype))
@@ -193,9 +199,14 @@ class MoCo(nn.Module):
         with torch.no_grad():
             if not self.training:
                 return self.encoder_k(x2)
+            # no collective: the parameters are equal on every rank
             momentum_update(self.encoder_q, self.encoder_k, self.m)
             if not self.shuffle_bn_groups:
                 return self.encoder_k(x2)
+            if dist.world_size() > 1:
+                raise NotImplementedError(
+                    "moco_shuffle_bn > 0 across processes (the reference's "
+                    "_batch_shuffle_ddp) is not ported (ROADMAP.md A.10)")
             if bn_perm is None:
                 bn_perm = torch.randperm(x2.shape[0], generator=generator,
                                          device=generator.device)
@@ -203,12 +214,18 @@ class MoCo(nn.Module):
                                        self.shuffle_bn_groups, bn_perm)
 
     def enqueue(self, k: torch.Tensor, series_k: torch.Tensor | None) -> None:
-        """Write this step's keys into both queues at the shared pointer and
-        advance it."""
+        """Write this step's keys of every rank (one all-gather of both) into
+        both queues at the shared pointer and advance it by their count."""
+        if series_k is not None:
+            series_k = series_k.reshape(k.shape[0], -1)
+        if dist.active():
+            both = k if series_k is None else torch.cat([k, series_k], dim=1)
+            both = dist.all_gather(both.detach())
+            k, series_k = both[:, :k.shape[1]], (
+                None if series_k is None else both[:, k.shape[1]:])
         dequeue_and_enqueue(self.queue, self.queue_ptr, k)
         if series_k is not None:
-            dequeue_and_enqueue(self.series_queue, self.queue_ptr,
-                                series_k.reshape(k.shape[0], -1))
+            dequeue_and_enqueue(self.series_queue, self.queue_ptr, series_k)
         self.queue_ptr.add_(k.shape[0]).remainder_(self.queue.shape[0])
 
     def forward(self, block: torch.Tensor, perm: torch.Tensor | None = None,

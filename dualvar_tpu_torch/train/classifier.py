@@ -22,8 +22,17 @@ port pretrain checkpoint (``core/checkpoint.py``). Checkpoints go through
 with the fields of the pretrain trainer's; ``--resume`` (``auto`` or a
 store directory) resumes training from its latest epoch, and gives the
 test protocols the latest classifier checkpoint of a store (or a file).
-Single process; runs on ``cuda`` unless the caller passes
-``device="cpu"``, and a missing card is an error.
+Runs on ``cuda`` unless the caller passes ``device="cpu"``, and a missing
+card is an error.
+
+Data-parallel across processes when launched with torchrun
+(``core/dist.py``), as the pretrain trainer: ``batch_size`` per process,
+the finetune's batch norms over the global batch, the gradient averaged
+over the processes, the logged metrics and the validation sums over the
+global batch; process 0 logs and writes. The test protocols shard the test
+set by process, gather every process's results and drop the duplicates
+that pad the shards, by video id (the JAX package's ``_gather_concat`` /
+``_dedupe_by_vid``); their accuracies equal a single process's.
 
 Usage:
     python -m dualvar_tpu_torch.train.classifier --preset paper_table1_ucf_ft \\
@@ -31,8 +40,11 @@ Usage:
     python -m dualvar_tpu_torch.train.classifier --preset smoke --device cpu
     python -m dualvar_tpu_torch.train.classifier --preset smoke --device cpu \\
         --test retrieval
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \\
+        -m dualvar_tpu_torch.train.classifier --preset paper_table1_ucf_ft \\
+        --synthetic 1 --pretrain log/paper_table1_k400/pretrain/exp/model
 
-Not ported yet (ROADMAP.md): multi-process runs (A.10), the metrics
+Not ported yet (ROADMAP.md): the metrics
 writer (A.12), ``--remat``,
 ``--fast_decode 1`` and ``--optim adam`` (A.13).
 """
@@ -52,6 +64,7 @@ import torch
 
 from ..aug.pipeline import (AugConfig, classifier_train_batch, eval_batch,
                             tenclip_batch, tencrop_batch)
+from ..core import dist
 from ..core.checkpoint import (CheckpointStore, load_pretrained_backbone,
                                load_state_dict)
 from ..core.config import CLASSIFIER_PRESETS, ClassifierConfig
@@ -99,7 +112,9 @@ def make_train_step(model: LinearClassifier, optimizer, scheduler,
                     aug_cfg: AugConfig, train_what: str,
                     autocast_dtype: torch.dtype = torch.float32):
     """Returns ``train_step(frames_u8, labels, generator) -> metrics``. The
-    generator feeds the augmentation draws and the dropout mask."""
+    generator feeds the augmentation draws and the dropout mask. Under a
+    process group the gradient is averaged over the processes before the
+    update, and the metrics are the global batch's."""
     probe = train_what == "last"
 
     def train_step(frames_u8: torch.Tensor, labels: torch.Tensor,
@@ -117,11 +132,13 @@ def make_train_step(model: LinearClassifier, optimizer, scheduler,
         loss = cross_entropy_from_logits(logit, labels)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        dist.average_gradients(model.parameters())
         optimizer.step()
         scheduler.step()
         with torch.no_grad():
             top1, top5 = topk_accuracy(logit, labels, (1, 5))
-        return {"loss": loss.detach(), "top1": top1, "top5": top5}
+        return dist.mean_over_ranks(
+            {"loss": loss.detach(), "top1": top1, "top5": top5})
 
     return train_step
 
@@ -190,12 +207,14 @@ def tenclip_dataset(cfg: ClassifierConfig, mode: str) -> TenClipDataset:
         num_frames=cfg.data.seq_len, ds=cfg.data.ds)
 
 
-def set_path(cfg: ClassifierConfig) -> str:
-    """log/{prefix}/ft/{name}/{ucf|hmdb}/ layout (classifier.py:1087-1116)."""
+def set_path(cfg: ClassifierConfig, create: bool = True) -> str:
+    """log/{prefix}/ft/{name}/{ucf|hmdb}/ layout (classifier.py:1087-1116),
+    made unless ``create`` is false."""
     fold = "hmdb" if "hmdb" in cfg.data.dataset else "ucf"
     exp = os.path.join(cfg.run.log_root, cfg.run.prefix, "ft",
                        cfg.run.name_prefix, fold)
-    os.makedirs(os.path.join(exp, "model"), exist_ok=True)
+    if create:
+        os.makedirs(os.path.join(exp, "model"), exist_ok=True)
     return exp
 
 
@@ -233,15 +252,21 @@ def setup_training(cfg: ClassifierConfig, device: str | torch.device = "cuda",
                    logger=None) -> TrainSetup:
     """Model (grafted from ``cfg.run.pretrain`` if set), train data,
     optimizer and train step for ``cfg`` on ``device``. Model init and every
-    random draw of the run come from ``cfg.run.seed``."""
+    random draw of the run come from ``cfg.run.seed``; under a process group
+    each process loads its shard and draws from ``cfg.run.seed + rank``."""
     device = _resolve_device(device)
     model = build_model(cfg, cfg.run.seed)
     if cfg.run.pretrain:
         graft_pretrained(model, cfg.run.pretrain, logger)
     model.to(device)
+    dist.assert_replicas_equal(
+        list(model.parameters()) + list(model.buffers()),
+        "the classifier's initial parameters and buffers")
     loader = HostLoader(classifier_dataset(cfg, "train"),
                         cfg.optim.batch_size, shuffle=True,
-                        seed=cfg.run.seed, num_workers=cfg.data.workers)
+                        seed=cfg.run.seed, num_workers=cfg.data.workers,
+                        process_index=dist.rank(),
+                        process_count=dist.world_size())
     optimizer, scheduler = make_optimizer(
         cfg, trainable_parameters(model, cfg.train_what), len(loader))
     train_step = make_train_step(model, optimizer, scheduler,
@@ -249,7 +274,8 @@ def setup_training(cfg: ClassifierConfig, device: str | torch.device = "cuda",
                                  _AUTOCAST[cfg.model.dtype])
     # on the device: the augmentation's draws and the dropout mask are made
     # there, with no copy from the host
-    generator = torch.Generator(device=device).manual_seed(cfg.run.seed)
+    generator = torch.Generator(device=device).manual_seed(
+        cfg.run.seed + dist.rank())
     return TrainSetup(model, loader, optimizer, scheduler, train_step,
                       generator)
 
@@ -262,8 +288,10 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
     ``cfg.run.resume`` goes on from the latest epoch of a store. Returns the
     last logged step's metrics and ``val_top1``."""
     device = _resolve_device(device)
-    exp_path = set_path(cfg)
-    logger = get_logger(os.path.join(exp_path, "log"))
+    dist.init_distributed(device)
+    exp_path = set_path(cfg, create=dist.is_main())
+    logger = get_logger(os.path.join(exp_path, "log"),
+                        process_index=dist.rank())
     logger.info(f"Classifier to {cfg.num_class} classes with "
                 f"{cfg.model.net} backbone on {device}, "
                 f"train_what={cfg.train_what}")
@@ -275,22 +303,32 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
         setup_training(cfg, device, logger)
     autocast_dtype = _AUTOCAST[cfg.model.dtype]
     eval_step = make_eval_step(model, _aug_config(cfg), autocast_dtype)
+    # sharded like train: the padded shards keep the processes in step, and
+    # the validation sums count the padding, as the JAX package's do
     val_loader = HostLoader(classifier_dataset(cfg, "val"),
                             cfg.optim.batch_size, shuffle=False,
                             seed=cfg.run.seed, num_workers=cfg.data.workers,
-                            drop_last=False)
+                            drop_last=False, process_index=dist.rank(),
+                            process_count=dist.world_size())
     steps_per_epoch = len(loader)
-    logger.info(f"=> batch {cfg.optim.batch_size}; {steps_per_epoch} "
-                "steps/epoch")
+    logger.info(f"=> Effective batch = "
+                f"{cfg.optim.batch_size * dist.world_size()} "
+                f"({dist.world_size()} processes x {cfg.optim.batch_size}); "
+                f"{steps_per_epoch} steps/epoch")
 
-    store = CheckpointStore(os.path.join(exp_path, "model"),
-                            async_save=cfg.run.async_ckpt)
+    store = None
+    if dist.is_main():
+        store = CheckpointStore(os.path.join(exp_path, "model"),
+                                async_save=cfg.run.async_ckpt)
+    dist.barrier()
     start_epoch = cfg.optim.start_epoch
     best_acc = 0.0
     global_step = start_epoch * steps_per_epoch
     if cfg.run.resume:
-        resumed = resume_training(cfg.run.resume, store, model, optimizer,
-                                  scheduler, generator, logger)
+        resumed = resume_training(
+            cfg.run.resume, store or CheckpointStore(
+                os.path.join(exp_path, "model")),
+            model, optimizer, scheduler, generator, logger)
         if resumed:
             start_epoch, global_step, best_acc = resumed
     final: dict[str, float] = {}
@@ -334,6 +372,7 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
                         torch.from_numpy(batch["label"]).to(device))
                     for k in sums:
                         sums[k] += m[k].item()
+                sums = dist.sum_over_ranks(sums)
                 n = max(sums["n"], 1.0)
                 val_acc = sums["top1"] / n
                 logger.info(
@@ -341,9 +380,10 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
                     f"Acc@1: {val_acc:.4f} Acc@5: {sums['top5'] / n:.4f}")
                 final["val_top1"] = val_acc
                 best_acc = max(best_acc, val_acc)
-                saved = store.save(epoch, training_state(
+                generators = dist.gather_generator_states(generator)
+                saved = store is None or store.save(epoch, training_state(
                     model, optimizer, scheduler, generator, epoch,
-                    global_step, best_acc), {"acc": val_acc})
+                    global_step, best_acc, generators), {"acc": val_acc})
                 if saved:
                     logger.info(f"saved checkpoint epoch {epoch} "
                                 f"(acc {val_acc:.4f})")
@@ -357,7 +397,8 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
     finally:
         loader.close()
         val_loader.close()
-        store.close()
+        if store is not None:
+            store.close()
     return final
 
 
@@ -366,8 +407,18 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
 # --------------------------------------------------------------------------
 
 def _test_loader(cfg: ClassifierConfig, dataset) -> HostLoader:
+    """This process's shard of ``dataset``, padded to the others' length."""
     return HostLoader(dataset, cfg.optim.batch_size, shuffle=False, seed=0,
-                      num_workers=cfg.data.workers, drop_last=False)
+                      num_workers=cfg.data.workers, drop_last=False,
+                      process_index=dist.rank(),
+                      process_count=dist.world_size())
+
+
+def _dedupe_by_vid(vids: np.ndarray, *arrays: np.ndarray):
+    """The first record of each video id, in the order of the ids: the
+    shards' padding repeats some videos."""
+    _, first = np.unique(vids, return_index=True)
+    return tuple(a[first] for a in (vids,) + arrays)
 
 
 def _load_test_state(cfg: ClassifierConfig, model: LinearClassifier,
@@ -385,10 +436,13 @@ def _load_test_state(cfg: ClassifierConfig, model: LinearClassifier,
 
 
 def _test_setup(cfg: ClassifierConfig, device, log_name: str):
-    """(device, exp_path, logger, model on the device, autocast type)."""
+    """(device, exp_path, logger, model on the device, autocast type), in
+    the process group torchrun's environment names, if any."""
     device = _resolve_device(device)
-    exp_path = set_path(cfg)
-    logger = get_logger(os.path.join(exp_path, log_name))
+    dist.init_distributed(device)
+    exp_path = set_path(cfg, create=dist.is_main())
+    logger = get_logger(os.path.join(exp_path, log_name),
+                        process_index=dist.rank())
     model = build_model(cfg)
     _load_test_state(cfg, model, logger)
     return (device, exp_path, logger, model.to(device),
@@ -412,10 +466,14 @@ def test_multicrop(cfg: ClassifierConfig, protocol: str = "ten",
         : {"center": 1, "five": 2, "ten": 3}[protocol]]
     n_class = cfg.num_class
     # probabilities summed per record (video, window) over each group's
-    # passes
+    # passes. A pass writes each record it sees (a shard's padding may show
+    # a record twice, to this process or another: the same value), so the
+    # processes' sums, divided by how many processes saw a record, are a
+    # single process's
     prob_rec = {g: np.zeros((len(dataset), n_class), np.float64)
                 for g in groups}
     g_passes = {g: 0 for g in groups}
+    seen = np.zeros(len(dataset), bool)
     labels_arr = np.full(len(dataset.entries), -1, np.int64)
     with _test_loader(cfg, dataset) as loader:
         for flip in flip_list:
@@ -428,20 +486,31 @@ def test_multicrop(cfg: ClassifierConfig, protocol: str = "ten",
                         aug_cfg, where, bool(flip))
                     logit, _ = _forward(model, clips, autocast_dtype)
                     tmp[batch["rid"]] = logit.softmax(dim=-1).cpu().numpy()
+                    seen[batch["rid"]] = True
                     labels_arr[batch["vid"]] = batch["label"]
                 for g, member in (("center", flip == 0 and where == 5),
                                   ("five", flip == 0), ("ten", True)):
                     if g in prob_rec and member:
                         prob_rec[g] += tmp
                         g_passes[g] += 1
+    if dist.active():
+        gathered = dist.gather_concat(
+            labels_arr[None], seen[None].astype(np.int64),
+            *[prob_rec[g][None] for g in groups])
+        labels_arr = gathered[0].max(axis=0)
+        seen_by = gathered[1].sum(axis=0)
+        for i, g in enumerate(groups):
+            prob_rec[g] = (gathered[2 + i].sum(axis=0)
+                           / np.maximum(seen_by, 1)[:, None])
+        seen = seen_by > 0
 
     # mean over a video's records and the group's passes
-    rec_vid = dataset.record_vids()
+    rec_vid = dataset.record_vids()[seen]
     n_rec = np.bincount(rec_vid, minlength=len(labels_arr))
     out: dict[str, float] = {}
     for g in groups:
         prob_sum = np.zeros((len(labels_arr), n_class), np.float64)
-        np.add.at(prob_sum, rec_vid, prob_rec[g])
+        np.add.at(prob_sum, rec_vid, prob_rec[g][seen])
         mean_probs = prob_sum / (n_rec * g_passes[g])[:, None]
         top1 = float(np.mean(mean_probs.argmax(1) == labels_arr))
         topk = np.argsort(-mean_probs, axis=1)[:, :min(5, n_class)]
@@ -449,8 +518,9 @@ def test_multicrop(cfg: ClassifierConfig, protocol: str = "ten",
         logger.info(f"{g}-crop: Mean: Acc@1: {top1:.4f} Acc@5: {top5:.4f}")
         out[f"{g}_top1"], out[f"{g}_top5"] = top1, top5
     out["top1"], out["top5"] = out[f"{protocol}_top1"], out[f"{protocol}_top5"]
-    with open(os.path.join(exp_path, f"prob-{protocol}.json"), "w") as f:
-        json.dump(out, f)
+    if dist.is_main():
+        with open(os.path.join(exp_path, f"prob-{protocol}.json"), "w") as f:
+            json.dump(out, f)
     return out
 
 
@@ -459,9 +529,10 @@ def _tenclip_pass(cfg: ClassifierConfig, model: LinearClassifier, mode: str,
     """One pass over the 10-clip dataset of ``mode``: per video the softmax
     probabilities averaged over its 10 clips (N, C), the features averaged
     (N, D), the per-clip features (N, 10, D), the labels (N,), and the
-    dataset."""
+    dataset; under a process group every process's videos, gathered, each
+    once, in the order of their ids."""
     dataset = tenclip_dataset(cfg, mode)
-    probs, feats, pers, labels = [], [], [], []
+    probs, feats, pers, labels, vids = [], [], [], [], []
     with _test_loader(cfg, dataset) as loader:
         for batch in loader.epoch(0):
             clips = tenclip_batch(
@@ -476,8 +547,10 @@ def _tenclip_pass(cfg: ClassifierConfig, model: LinearClassifier, mode: str,
             feats.append(per.mean(dim=1).cpu().numpy())  # classifier.py:888
             pers.append(per.cpu().numpy())
             labels.append(batch["label"])
-    return (np.concatenate(probs), np.concatenate(feats),
-            np.concatenate(pers), np.concatenate(labels), dataset)
+            vids.append(batch["vid"])
+    _, *arrays = _dedupe_by_vid(*dist.gather_concat(*(
+        np.concatenate(a) for a in (vids, probs, feats, pers, labels))))
+    return (*arrays, dataset)
 
 
 def test_temporal_tenclip(cfg: ClassifierConfig,
@@ -501,8 +574,10 @@ def test_temporal_tenclip(cfg: ClassifierConfig,
         classwise.setdefault(int(l), []).append(int(p.argmax() == l))
     class_acc = {int(k): float(np.mean(v)) for k, v in classwise.items()}
     out = {"top1": top1, "top5": top5, "classwise": class_acc}
-    with open(os.path.join(exp_path, "prob-temporal_10_clip.json"), "w") as f:
-        json.dump(out, f)
+    if dist.is_main():
+        with open(os.path.join(exp_path, "prob-temporal_10_clip.json"),
+                  "w") as f:
+            json.dump(out, f)
     return out
 
 
@@ -533,12 +608,17 @@ def test_retrieval(cfg: ClassifierConfig,
         cfg, model, "train", aug_cfg, device, autocast_dtype)
     logger.info(f"test {test_f.shape}, train {train_f.shape}")
 
-    # the reference's artifact set (classifier.py:861-915,977) as npy / json
+    # the reference's artifact set (classifier.py:861-915,977) as npy /
+    # json, written by process 0
     ds_name = cfg.data.dataset.split("-")[0]
     feat_dir = os.path.join(exp_path, cfg.dirname)
-    os.makedirs(feat_dir, exist_ok=True)
+    write = dist.is_main()
+    if write:
+        os.makedirs(feat_dir, exist_ok=True)
     for split, f, p, l, v in (("test", test_f, test_p, test_l, test_v),
                               ("train", train_f, train_p, train_l, train_v)):
+        if not write:
+            break
         np.save(os.path.join(feat_dir, f"{ds_name}_{split}_feature.npy"), f)
         np.save(os.path.join(feat_dir, f"{ds_name}_{split}_per_feature.npy"),
                 p)
@@ -554,7 +634,8 @@ def test_retrieval(cfg: ClassifierConfig,
     train_f /= np.maximum(np.linalg.norm(train_f, axis=1, keepdims=True),
                           1e-12)
     sim = test_f @ train_f.T
-    np.save(os.path.join(feat_dir, f"{ds_name}_sim.npy"), sim)
+    if write:
+        np.save(os.path.join(feat_dir, f"{ds_name}_sim.npy"), sim)
 
     out = {}
     for k in (1, 5, 10, 20, 50):
@@ -562,8 +643,9 @@ def test_retrieval(cfg: ClassifierConfig,
         hit = (train_l[topk] == test_l[:, None]).any(axis=1)
         out[f"R@{k}"] = float(hit.mean())
         logger.info(f"R@{k} ({k}NN acc) = {out[f'R@{k}']:.4f}")
-    with open(os.path.join(feat_dir, "retrieval.json"), "w") as f:
-        json.dump(out, f)
+    if write:
+        with open(os.path.join(feat_dir, "retrieval.json"), "w") as f:
+            json.dump(out, f)
     return out
 
 
@@ -709,14 +791,17 @@ def main(argv: list[str] | None = None):
         if getattr(args, name) is not None:
             cfg = dataclasses.replace(cfg, **{name: getattr(args, name)})
 
-    if args.test == "retrieval":
-        test_retrieval(cfg, args.device)
-    elif args.test == "temporal_ten_clip":
-        test_temporal_tenclip(cfg, args.device)
-    elif args.test in ("center", "five", "ten"):
-        test_multicrop(cfg, args.test, args.device)
-    else:
-        train(cfg, max_steps=args.max_steps, device=args.device)
+    try:
+        if args.test == "retrieval":
+            test_retrieval(cfg, args.device)
+        elif args.test == "temporal_ten_clip":
+            test_temporal_tenclip(cfg, args.device)
+        elif args.test in ("center", "five", "ten"):
+            test_multicrop(cfg, args.test, args.device)
+        else:
+            train(cfg, max_steps=args.max_steps, device=args.device)
+    finally:
+        dist.destroy()
 
 
 if __name__ == "__main__":

@@ -15,8 +15,20 @@ generator's state. ``--resume auto`` (this run's store) or ``--resume
 match. Runs on ``cuda`` unless the caller passes ``device="cpu"``; a
 missing card is an error, never a silent fall back to the CPU.
 
+Data-parallel across processes when launched with torchrun
+(``core/dist.py``): each process trains on its shard of the data with a
+batch of ``batch_size`` (per process, as the reference's batch per GPU),
+and the step is the JAX package's step on the global batch: batch norms
+over the global batch, the contrastive losses' negatives from every
+process, MoCo's queue fed by every process's keys, the gradient averaged
+over the processes. Process 0 logs and writes the checkpoints; a
+checkpoint holds every process's generator state.
+
 Usage:
     python -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
+        --synthetic 1 --max_steps 20
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \\
+        -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
         --synthetic 1 --max_steps 20
     python -m dualvar_tpu_torch.train.pretrain --preset paper_table2_moco_r21d \\
         --mode clip-sr-dtw --synthetic 1 --max_steps 20
@@ -42,6 +54,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..aug.pipeline import AugConfig, pretrain_batch
+from ..core import dist
 from ..core.checkpoint import (CheckpointStore, load_state_dict,
                                merge_matching_leaves)
 from ..core.config import PRETRAIN_PRESETS, PretrainConfig
@@ -77,7 +90,8 @@ def make_optimizer(cfg: PretrainConfig, params, steps_per_epoch: int):
 
 def compute_metrics(ret: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """Per-loss scalars + accuracies, mirroring the reference's dynamic meter
-    discovery (pretrain.py:404-445)."""
+    discovery (pretrain.py:404-445); under a process group each averaged
+    over the processes, which makes it the global batch's."""
     metrics: dict[str, torch.Tensor] = {}
     for key, val in ret.items():
         if not key.endswith("loss"):
@@ -92,13 +106,14 @@ def compute_metrics(ret: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
                 if prefix == "clip":
                     metrics["clip_top5"] = topk_accuracy(logits, labels, (1, 5))[1]
     metrics["total_loss"] = total_loss(ret).detach()
-    return metrics
+    return dist.mean_over_ranks(metrics)
 
 
 def make_train_step(task, optimizer, scheduler, aug_cfg: AugConfig,
                     autocast_dtype: torch.dtype = torch.float32):
     """Returns ``train_step(frames_u8, generator) -> metrics``. The generator
-    feeds the augmentation draws and the segment shuffle."""
+    feeds the augmentation draws and the segment shuffle. Under a process
+    group the gradient is averaged over the processes before the update."""
     def train_step(frames_u8: torch.Tensor, generator: torch.Generator):
         with torch.no_grad():
             block = pretrain_batch(generator, frames_u8, aug_cfg)
@@ -109,6 +124,7 @@ def make_train_step(task, optimizer, scheduler, aug_cfg: AugConfig,
         loss = total_loss(ret)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        dist.average_gradients(task.parameters())
         optimizer.step()
         scheduler.step()
         with torch.no_grad():
@@ -150,11 +166,13 @@ def build_dataset(cfg: PretrainConfig, n_views: int = 3):
     )
 
 
-def set_path(cfg: PretrainConfig) -> str:
-    """log/{prefix}/pretrain/{name}/ layout (reference pretrain.py:567-591)."""
+def set_path(cfg: PretrainConfig, create: bool = True) -> str:
+    """log/{prefix}/pretrain/{name}/ layout (reference pretrain.py:567-591),
+    made unless ``create`` is false."""
     exp = os.path.join(cfg.run.log_root, cfg.run.prefix, "pretrain",
                        cfg.run.name_prefix)
-    os.makedirs(os.path.join(exp, "model"), exist_ok=True)
+    if create:
+        os.makedirs(os.path.join(exp, "model"), exist_ok=True)
     return exp
 
 
@@ -185,7 +203,10 @@ def setup_training(cfg: PretrainConfig,
 
     Model init and every random draw of the run come from explicit
     generators seeded with ``cfg.run.seed``; the process-global RNG is left
-    untouched."""
+    untouched. Under a process group every process builds the same model
+    (checked once), loads its shard of the data, and draws from
+    ``cfg.run.seed + rank``: process 0 draws what a run of one process
+    draws."""
     device = _resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.run.seed)
@@ -193,9 +214,14 @@ def setup_training(cfg: PretrainConfig,
                          torch.Generator().manual_seed(cfg.run.seed))
     model = task.model.to(device)
     model.train()
+    dist.assert_replicas_equal(
+        list(model.parameters()) + list(model.buffers()),
+        "the model's initial parameters and buffers")
     loader = HostLoader(build_dataset(cfg, task.n_views),
                         cfg.optim.batch_size, shuffle=True,
-                        seed=cfg.run.seed, num_workers=cfg.data.workers)
+                        seed=cfg.run.seed, num_workers=cfg.data.workers,
+                        process_index=dist.rank(),
+                        process_count=dist.world_size())
     aug_cfg = AugConfig(
         img_dim=cfg.data.img_dim, seq_len=cfg.data.seq_len,
         aug_temp_consist=cfg.aug.aug_temp_consist,
@@ -209,35 +235,46 @@ def setup_training(cfg: PretrainConfig,
                                  _AUTOCAST[cfg.model.dtype])
     # on the device: the augmentation's draws and the segment shuffles are
     # made there, with no copy from the host
-    generator = torch.Generator(device=device).manual_seed(cfg.run.seed)
+    generator = torch.Generator(device=device).manual_seed(
+        cfg.run.seed + dist.rank())
     return TrainSetup(task, model, loader, optimizer, scheduler, train_step,
                       generator)
 
 
 def training_state(model, optimizer, scheduler, generator, epoch: int,
-                   iteration: int, best_acc: float) -> dict:
+                   iteration: int, best_acc: float,
+                   generators: list | None = None) -> dict:
     """What a checkpoint holds: everything a resumed run needs to go on as
-    the uninterrupted run would."""
+    the uninterrupted run would. ``generators``: under a process group,
+    every process's generator state in rank order
+    (``dist.gather_generator_states``); ``generator`` is this process's."""
     sched = scheduler.state_dict()
     # a plain dict: torch.load's weights-only reader rebuilds a Counter's
     # items as its keys
     sched["milestones"] = dict(sched["milestones"])
-    return {"epoch": epoch, "iteration": iteration, "best_acc": best_acc,
-            "state_dict": model.state_dict(),
-            "optimizer": optimizer.state_dict(), "scheduler": sched,
-            "generator": generator.get_state()}
+    state = {"epoch": epoch, "iteration": iteration, "best_acc": best_acc,
+             "state_dict": model.state_dict(),
+             "optimizer": optimizer.state_dict(), "scheduler": sched,
+             "generator": generator.get_state()}
+    if generators is not None:
+        state["generators"] = generators
+    return state
 
 
 def restore_training_state(ckpt: dict, model, optimizer, scheduler,
                            generator) -> None:
     """Load a checkpoint of ``training_state`` into the run's objects (the
-    optimizer's state moves to its parameters' device)."""
+    optimizer's state moves to its parameters' device). Each process takes
+    its own generator state; a process whose rank the checkpoint has no
+    state for (it was saved by fewer processes) keeps its fresh one."""
     model.load_state_dict(ckpt["state_dict"])
     optimizer.load_state_dict(ckpt["optimizer"])
     sched = dict(ckpt["scheduler"])
     sched["milestones"] = collections.Counter(sched["milestones"])
     scheduler.load_state_dict(sched)
-    generator.set_state(ckpt["generator"])
+    states = ckpt.get("generators", [ckpt["generator"]])
+    if dist.rank() < len(states):
+        generator.set_state(states[dist.rank()])
 
 
 def resume_training(resume: str, store: CheckpointStore, model, optimizer,
@@ -258,6 +295,11 @@ def resume_training(resume: str, store: CheckpointStore, model, optimizer,
         return None
     ckpt = source.restore(last)
     restore_training_state(ckpt, model, optimizer, scheduler, generator)
+    saved_by = len(ckpt.get("generators", [None]))
+    if saved_by != dist.world_size():
+        logger.info(f"[warning] the checkpoint holds the generators of "
+                    f"{saved_by} processes, this run has "
+                    f"{dist.world_size()}: the others start fresh")
     logger.info(f"=> resumed from epoch {last} (iteration "
                 f"{ckpt['iteration']}) of {source.directory}")
     return last + 1, ckpt["iteration"], ckpt["best_acc"]
@@ -288,10 +330,15 @@ def load_pretrain_weights(model: torch.nn.Module, path: str,
 
 def train(cfg: PretrainConfig, max_steps: int | None = None,
           device: str | torch.device = "cuda") -> dict[str, float]:
-    """Full pretraining loop. Returns the last logged step's metrics."""
+    """Full pretraining loop. Returns the last logged step's metrics (under
+    a process group the global batch's, on every process). Joins the
+    process group torchrun's environment names (``dist.init_distributed``);
+    a group the caller made is used as it is."""
     device = _resolve_device(device)
-    exp_path = set_path(cfg)
-    logger = get_logger(os.path.join(exp_path, "log"))
+    dist.init_distributed(device)
+    exp_path = set_path(cfg, create=dist.is_main())
+    logger = get_logger(os.path.join(exp_path, "log"),
+                        process_index=dist.rank())
     logger.info(f"=> creating {cfg.model.model} with '{cfg.model.net}' "
                 f"backbone on {device}")
     if device.type == "cuda":
@@ -308,18 +355,28 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
     steps_per_epoch = len(loader)
     logger.info(f"train dataset size {len(loader.dataset)}, "
                 f"{steps_per_epoch} steps/epoch")
+    logger.info(f"=> Effective batch = "
+                f"{cfg.optim.batch_size * dist.world_size()} "
+                f"({dist.world_size()} processes x {cfg.optim.batch_size})")
     n_params = sum(p.numel() for p in task.parameters())
     logger.info(f"params: {n_params / 1e6:.2f}M")
 
-    store = CheckpointStore(os.path.join(exp_path, "model"),
-                            keep_all=cfg.run.keep_all,
-                            async_save=cfg.run.async_ckpt)
+    # process 0 writes the store; the others open it only to resume, once
+    # it exists and its leftovers are gone
+    store = None
+    if dist.is_main():
+        store = CheckpointStore(os.path.join(exp_path, "model"),
+                                keep_all=cfg.run.keep_all,
+                                async_save=cfg.run.async_ckpt)
+    dist.barrier()
     start_epoch = cfg.optim.start_epoch
     best_acc = 0.0
     global_step = start_epoch * steps_per_epoch
     if cfg.run.resume:
-        resumed = resume_training(cfg.run.resume, store, model, optimizer,
-                                  scheduler, generator, logger)
+        resumed = resume_training(
+            cfg.run.resume, store or CheckpointStore(
+                os.path.join(exp_path, "model")),
+            model, optimizer, scheduler, generator, logger)
         if resumed:
             start_epoch, global_step, best_acc = resumed
     elif cfg.run.pretrain:
@@ -385,9 +442,12 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
                 train_acc = bank.accs["clip"].avg if "clip" in bank.accs else 0.0
                 best_acc = max(best_acc, train_acc)
                 if (epoch + 1) % cfg.run.save_freq == 0 or last:
-                    saved = store.save(epoch, training_state(
-                        model, optimizer, scheduler, generator, epoch,
-                        global_step, best_acc), {"acc": train_acc})
+                    generators = dist.gather_generator_states(generator)
+                    saved = store is None or store.save(
+                        epoch, training_state(
+                            model, optimizer, scheduler, generator, epoch,
+                            global_step, best_acc, generators),
+                        {"acc": train_acc})
                     if saved:
                         logger.info(f"saved checkpoint epoch {epoch} "
                                     f"(acc {train_acc:.4f})")
@@ -400,7 +460,8 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
                 break
     finally:
         loader.close()
-        store.close()
+        if store is not None:
+            store.close()
 
     logger.info(
         f"Training from ep {start_epoch} to ep {cfg.optim.epochs} finished")
@@ -529,7 +590,10 @@ def main(argv: list[str] | None = None):
     if args.async_ckpt is not None:
         cfg = cfg.replace(run=dataclasses.replace(
             cfg.run, async_ckpt=bool(args.async_ckpt)))
-    train(cfg, max_steps=args.max_steps, device=args.device)
+    try:
+        train(cfg, max_steps=args.max_steps, device=args.device)
+    finally:
+        dist.destroy()
 
 
 if __name__ == "__main__":

@@ -46,6 +46,7 @@ print("\\n".join(names))
             "dualvar_tpu_torch.models.backbones.s3dg",
             "dualvar_tpu_torch.models.backbones.resnet_2d3d",
             "dualvar_tpu_torch.core.checkpoint",
+            "dualvar_tpu_torch.core.dist",
             "dualvar_tpu_torch.core.convert",
             "dualvar_tpu_torch.models.ssl.moco",
             "dualvar_tpu_torch.train.pretrain"} <= set(names)

@@ -3,6 +3,10 @@ filled with seeded numpy values, so both packages start from the same
 weights without compiling a JAX initialiser."""
 
 import contextlib
+import os
+import subprocess
+import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -251,3 +255,53 @@ def check_backbone_train_step_float64(net, jm, params, stats, tm, size,
         assert scale > 0, key
         np.testing.assert_allclose(p.grad.numpy() / scale, ref / scale,
                                    atol=BACKBONE_GRAD_ATOL, err_msg=key)
+
+
+# -- multi-process runs of the port (gloo on the CPU) -----------------------
+
+DIST_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "torch_port_dist_worker.py")
+# torchrun's variables, and what else a rank must not inherit
+_RANK_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+             "PYTHONPATH", "DUALVAR_BN_STATS")
+
+
+def launch_ranks(case, inputs, directory, world=2, timeout=120.0):
+    """Run ``case`` of ``tests/torch_port_dist_worker.py`` in ``world``
+    processes joined through a ``file://`` store in ``directory`` (no TCP
+    port, so test files can run side by side) on ``inputs``; returns each
+    rank's output. Each rank has ``timeout`` seconds: a hung rendezvous
+    fails the test instead of hanging the suite."""
+    import torch
+
+    os.makedirs(directory, exist_ok=True)
+    torch.save(inputs, os.path.join(directory, "inputs.pt"))
+    env = {k: v for k, v in os.environ.items() if k not in _RANK_ENV}
+    env["OMP_NUM_THREADS"] = str(TORCH_THREADS)
+    logs = [open(os.path.join(directory, f"log_{r}.txt"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, DIST_WORKER, case, str(r), str(world),
+         str(directory)], env=env, stdout=log, stderr=subprocess.STDOUT)
+        for r, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(directory, f"log_{r}.txt")) as fh:
+                raise AssertionError(
+                    f"rank {r} of {case!r} exited {p.returncode} (killed "
+                    f"after {timeout} s if negative):\n" + fh.read()[-3000:])
+    return [torch.load(os.path.join(directory, f"out_{r}.pt"),
+                       weights_only=False) for r in range(world)]
