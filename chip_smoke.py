@@ -69,6 +69,26 @@ Phases, each fatal on failure (non-zero exit):
      step, soft-DTW twice a step); the step time of ``paper_table1_k400`` at
      B=8 (five windows) and 32 (three) without and with the group, with
      the collectives a step by kind;
+   - path V, the backbone registry's variants: ``paper_table1_k400 --net
+     r21d_pad128 / r21d_tiled / s3d_packed / s3dg_packed``, two steps each
+     and the step time at B=8; r21d_pad128 also two steps under
+     ``DUALVAR_BN_STATS=pallas``, and after both runs every pad block (the
+     weights', the batch-norm biases' and running means', the momentum
+     buffers') bitwise zero; the main path's r21d state embedded into
+     r21d_pad128, one float32 step against r21d's on the same frames; path
+     G's S3D-G packed into s3dg_packed, its eval forward against the
+     standard one;
+   - path E, the serving export: path C's finetuned checkpoint through
+     ``python -m dualvar_tpu_torch.export`` (its ``main``) at B=8, single
+     clip and ten clips, both artifacts run in a fresh process that imports
+     torch only, against the eager eval path on the same frames (no kernel
+     launched); the export's time, the artifact's bytes, the served and the
+     eager ms a batch;
+   - what the main path's run writes besides its checkpoint: the profiler
+     trace of ``--profile_steps 2`` (it must name the ``aug_fused``
+     kernel, once a traced step) and the metrics writer's
+     ``metrics.jsonl``; ``get_features`` of SimCLR TimeSeriesV4 and of
+     MoCo on the card against the CPU;
    then step times at B=8 and B=32 (MoCo in ``clip-sr-tc`` and
    ``clip-sr-dtw``, at n_series 2 and 16: the difference is what soft-DTW
    and its cost tensor take), of path R at B=8, 32 and 128 with the
@@ -196,6 +216,21 @@ def device_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def tf32_off(torch):
+    """Turn TF32 off for convolutions and matmuls; returns the old flags
+    for ``tf32_restore``."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return old
+
+
+def tf32_restore(torch, old) -> None:
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        old
 
 
 def time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -1036,18 +1071,20 @@ LAST_METRICS: dict = {}
 
 
 def run_path(torch, label: str, cfg, steps: int, want_launches: dict,
-             metric_keys: tuple) -> tuple[dict, dict]:
+             metric_keys: tuple, profile_steps: int = 0) -> tuple[dict, dict]:
     """train() of ``cfg``'s trainer for ``steps`` steps with every launch
     count set to 0 just before and read just after; returns the state_dict
     of the newest checkpoint it saved and the counts of exactly that run.
-    ``metric_keys`` must come back finite (and pretrain's ``total_loss``)."""
+    ``metric_keys`` must come back finite (and pretrain's ``total_loss``).
+    ``profile_steps``: pretrain's ``--profile_steps``."""
     from dualvar_tpu_torch.core.checkpoint import checkpoint_file
 
     trainer = trainer_of(cfg)
     counters = kernel_counters()
     for wrapper in counters.values():
         wrapper.launches = 0
-    metrics = trainer.train(cfg, max_steps=steps, device="cuda")
+    extra = {"profile_steps": profile_steps} if profile_steps else {}
+    metrics = trainer.train(cfg, max_steps=steps, device="cuda", **extra)
     LAST_METRICS.clear()
     LAST_METRICS.update(metrics)
     torch.cuda.synchronize()
@@ -1079,29 +1116,69 @@ TSV4_LOSSES = ("clip_loss", "tc_loss", "aug_ranking_margin_loss",
                "unaug_ranking_margin_loss")
 
 
+# the main path's run traces this many steps (--profile_steps)
+PROFILE_STEPS = 2
+
+
 def run_main_path(torch, log_root: str) -> tuple[dict, dict]:
-    """The first slice's path: SimCLR TimeSeriesV4 in mode clip-sr-tc."""
+    """The first slice's path: SimCLR TimeSeriesV4 in mode clip-sr-tc, with
+    ``profile_steps`` on (``check_observability``)."""
+    cfg = smoke_cfg("paper_table1_k400", 8, log_root)
     state, launches = run_path(
-        torch, "path paper_table1_k400",
-        smoke_cfg("paper_table1_k400", 8, log_root), TRAIN_STEPS,
-        expected_launches(aug_fused=TRAIN_STEPS), TSV4_LOSSES)
+        torch, "path paper_table1_k400", cfg, TRAIN_STEPS,
+        expected_launches(aug_fused=TRAIN_STEPS), TSV4_LOSSES,
+        profile_steps=PROFILE_STEPS)
     mean = state["backbone.bn1.running_mean"]
     var = state["backbone.layer4_block0.bn2.running_var"]
     if float(mean.abs().max()) == 0.0 or float((var - 1).abs().max()) == 0.0:
         fail("main path: BN running statistics did not move")
+    check_observability(cfg)
     return state, launches
+
+
+def check_observability(cfg) -> None:
+    """What the main path's run wrote besides its checkpoint: the profiler
+    trace of ``PROFILE_STEPS`` steps under ``{exp}/img/profile``, which
+    must name the ``aug_fused`` kernel's symbol (``aug_band_kernel``) once a
+    traced step, and ``{exp}/img/pretrain/metrics.jsonl`` with a
+    ``local/<metric>`` line for each metric of each of the ``TRAIN_STEPS``
+    logged steps and the epoch's ``global/`` losses and accuracies."""
+    from dualvar_tpu_torch.train.pretrain import set_path
+
+    exp = set_path(cfg)
+    trace = os.path.join(exp, "img", "profile", "rank0.pt.trace.json")
+    if not os.path.exists(trace):
+        fail(f"profile_steps: no trace at {trace}")
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    aug = [e for e in events if "aug_band_kernel" in e.get("name", "")]
+    device = [e for e in events if e.get("cat") == "kernel"]
+    if len(aug) != PROFILE_STEPS:
+        fail(f"profile_steps: the trace names aug_band_kernel {len(aug)} "
+             f"times, expected {PROFILE_STEPS} (one launch a traced step)")
+    print(f"profile_steps: {trace} ({os.path.getsize(trace)} bytes), "
+          f"{len(device)} device kernel events in {PROFILE_STEPS} steps, "
+          f"aug_fused as '{aug[0]['name']}' {len(aug)} times", flush=True)
+    with open(os.path.join(exp, "img", "pretrain", "metrics.jsonl")) as fh:
+        lines = [json.loads(line) for line in fh]
+    local = [x for x in lines if x["tag"].startswith("local/")]
+    tags = {x["tag"] for x in lines}
+    want = {"local/total_loss", "local/clip_loss", "global/clip_loss",
+            "global/clip_acc", "global/total_loss"}
+    if not want <= tags or len({x["step"] for x in local}) != TRAIN_STEPS \
+            or not all(math.isfinite(x["value"]) for x in lines):
+        fail(f"metrics writer: tags {sorted(tags)}, steps "
+             f"{sorted({x['step'] for x in local})}")
+    print(f"metrics writer: {len(lines)} lines, tags {sorted(tags)}",
+          flush=True)
 
 
 def initial_state(torch, cfg) -> dict:
     """The state_dict ``setup_training`` starts from for ``cfg``, rebuilt on
     the CPU from the same seeds."""
-    from dualvar_tpu_torch.train.tasks import make_task
+    from dualvar_tpu_torch.train.pretrain import build_task
 
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.run.seed)
-        task = make_task(cfg.model,
-                         torch.Generator().manual_seed(cfg.run.seed))
-    return task.model.state_dict()
+    return build_task(cfg).model.state_dict()
 
 
 def check_moco_state(torch, label: str, cfg, state: dict,
@@ -1403,10 +1480,7 @@ def check_f32_forward(torch, label: str, cfg, state: dict,
     from dualvar_tpu_torch.train.pretrain import build_dataset
     from dualvar_tpu_torch.train.tasks import make_task
 
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = tf32_off(torch)
     n_views = 2 if cfg.model.model.endswith("naked") else 3
     with HostLoader(build_dataset(cfg, n_views), 2, seed=1,
                     num_workers=2) as loader:
@@ -1484,8 +1558,7 @@ def check_f32_forward(torch, label: str, cfg, state: dict,
                 and errs["cpu_vs_f64"] <= feature_atol):
             fail(f"f32 check, {label}: backbone features off by more than "
                  f"{feature_atol}")
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
-        tf32
+    tf32_restore(torch, tf32)
 
 
 def check_restore_on_card(torch, label: str, cfg) -> dict:
@@ -2270,6 +2343,354 @@ def run_path_d(torch, log_root: str, r_state: dict) -> dict:
     return by_run
 
 
+# --------------------------------------------------------------------------
+# path V: the backbone registry's variants
+# --------------------------------------------------------------------------
+
+VARIANT_NETS = ("r21d_pad128", "r21d_tiled", "s3d_packed", "s3dg_packed")
+# R(2+1)D-18's 24 batch norms, each one forward and one backward
+# channel_sums call in each of a TimeSeriesV4 step's two backbone passes
+R21D_SUMS_PER_STEP = 2 * 2 * 24
+# r21d_pad128 embedded from an r21d state against r21d, one float32 step
+# on the same frames and draws, TF32 off: the same function, its padded
+# reductions regrouping float32 sums (the CPU tests: 1e-5 at 8x32x32); the
+# f32 check's loss tolerance
+EMBED_LOSS_ATOL = 1e-4
+# s3dg_packed packed from an s3dg state: the forward in float32 (TF32 off)
+# against the standard one, relative to the largest |feature|; the packed
+# convs have other shapes, so cuDNN sums in another order. Eval mode: 1e-4.
+# Train mode (batch statistics, no gradient), where S3D-G's 77 batch norms
+# divide by batch deviations and carry the conv rounding along: 1e-3, the
+# JAX package's measured float32 spread of its own packed against standard
+# network in train mode (dualvar_tpu/models/backbones/s3dg.py tests).
+PACKED_REL_TOL = {"eval": 1e-4, "train": 1e-3}
+
+
+def pad_block_values(torch, model, state: dict, momentum: dict) -> tuple:
+    """The pad blocks of ``model``'s r21d_pad128 (``r21d.pad_blocks``) in a
+    ``state`` dict and in the momentum buffers (``momentum``: parameter
+    name -> buffer): (blocks, values that are not +0.0 bitwise, values)."""
+    from dualvar_tpu_torch.models.backbones.r21d import pad_blocks
+
+    blocks = pad_blocks(model)
+    bad = total = 0
+    for key, index in blocks.items():
+        for t in (state[key], momentum.get(key)):
+            if t is None:
+                continue
+            block = t[index].detach().contiguous()
+            bad += int(block.view(torch.int32).ne(0).sum())
+            total += block.numel()
+    return len(blocks), bad, total
+
+
+def check_pad_blocks_saved(torch, label: str, cfg) -> None:
+    """Every pad block of the r21d_pad128 run's newest checkpoint, in the
+    weights, the running means and the momentum buffers, bitwise zero."""
+    from dualvar_tpu_torch.core.checkpoint import checkpoint_file
+    from dualvar_tpu_torch.train.pretrain import build_task, set_path
+
+    ckpt = torch.load(checkpoint_file(os.path.join(set_path(cfg), "model")),
+                      map_location="cpu")
+    model = build_task(cfg).model
+    names = [n for n, _ in model.named_parameters()]
+    momentum = {names[i]: st["momentum_buffer"]
+                for i, st in ckpt["optimizer"]["state"].items()}
+    blocks, bad, total = pad_block_values(torch, model, ckpt["state_dict"],
+                                          momentum)
+    print(f"{label}: {blocks} pad blocks (weights, batch-norm biases and "
+          f"running means, momentum buffers): {total} values, {bad} not "
+          "+0.0", flush=True)
+    if blocks != 44 or bad or not total:
+        fail(f"{label}: the pad blocks are not bitwise zero after "
+             f"{ckpt['iteration']} steps")
+
+
+def check_embedded_pad128_step(torch, log_root: str, r21d_state: dict):
+    """The main path's r21d state embedded into r21d_pad128
+    (``embed_formula_state``): one float32 train step (TF32 off) of each on
+    the same frames and generator, losses within ``EMBED_LOSS_ATOL``; the
+    pad blocks bitwise zero after it."""
+    from dualvar_tpu_torch.models.backbones.r21d import embed_formula_state
+    from dualvar_tpu_torch.train.pretrain import setup_training
+
+    old = tf32_off(torch)
+    losses = {}
+    for net in ("r21d", "r21d_pad128"):
+        cfg = smoke_cfg("paper_table1_k400", 8, log_root, net=net,
+                        dtype="float32")
+        setup = setup_training(cfg, "cuda")
+        state = r21d_state if net == "r21d" else embed_formula_state(
+            r21d_state, setup.model.state_dict())
+        setup.model.load_state_dict(state)
+        with setup.loader as loader:
+            frames = torch.from_numpy(next(loader.epoch(0))["frames"])
+        metrics = setup.train_step(frames.to("cuda"), setup.generator)
+        losses[net] = {k: float(v) for k, v in metrics.items()
+                       if k.endswith("loss")}
+        if net == "r21d_pad128":
+            momentum = {n: setup.optimizer.state[p]["momentum_buffer"]
+                        for n, p in setup.model.named_parameters()}
+            blocks, bad, total = pad_block_values(
+                torch, setup.model, setup.model.state_dict(), momentum)
+        del setup
+    tf32_restore(torch, old)
+    err = max(abs(losses["r21d"][k] - v)
+              for k, v in losses["r21d_pad128"].items())
+    print("path V r21d_pad128 embedded from the main path's r21d state, one "
+          "float32 step (TF32 off): losses " + json.dumps(losses)
+          + f", max difference {err:.3e} (atol {EMBED_LOSS_ATOL}); pad "
+          f"blocks after it: {total} values, {bad} not +0.0", flush=True)
+    if set(losses["r21d"]) != set(losses["r21d_pad128"]) \
+            or not err <= EMBED_LOSS_ATOL or bad or blocks != 44:
+        fail("path V: the embedded r21d_pad128 step is not the r21d step")
+
+
+def check_packed_s3dg(torch, g_state: dict) -> None:
+    """Path G's S3D-G backbone packed into s3dg_packed
+    (``pack_s3d_params``): the eval and the train-mode forward on the card
+    in float32 (TF32 off) against the standard one on the same clips,
+    within ``PACKED_REL_TOL`` of the largest |feature|."""
+    from dualvar_tpu_torch.models.backbones import select_backbone
+    from dualvar_tpu_torch.models.backbones.s3dg import pack_s3d_params
+
+    backbone = {k[len("backbone."):]: v for k, v in g_state.items()
+                if k.startswith("backbone.")}
+    standard, _ = select_backbone("s3dg")
+    standard.load_state_dict(backbone)
+    packed, _ = select_backbone("s3dg_packed")
+    packed.load_state_dict(pack_s3d_params(backbone))
+    x = torch.randn(8, 3, 16, 112, 112,
+                    generator=torch.Generator().manual_seed(5)).to("cuda")
+    standard.to("cuda")
+    packed.to("cuda")
+    old = tf32_off(torch)
+    errs = {}
+    for mode in ("eval", "train"):
+        with torch.no_grad():
+            want = standard.train(mode == "train")(x)
+            got = packed.train(mode == "train")(x)
+        scale = float(want.abs().max())
+        errs[mode] = float((got - want).abs().max()) / scale
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"path V s3dg_packed: {mode} forward {tuple(got.shape)} "
+                 "or not finite")
+        print(f"path V s3dg_packed packed from path G's S3D-G: {mode} "
+              f"forward {tuple(got.shape)}, max |difference| "
+              f"{errs[mode]:.3e} of the largest |feature| {scale:.4g} "
+              f"(tolerance {PACKED_REL_TOL[mode]})", flush=True)
+    tf32_restore(torch, old)
+    if not all(errs[m] <= PACKED_REL_TOL[m] for m in errs):
+        fail("path V: s3dg_packed does not compute s3dg's forward")
+
+
+def run_path_v(torch, log_root: str, main_state: dict,
+               g_state: dict) -> dict:
+    """``paper_table1_k400 --net <variant>``, two steps each at B=8
+    (``aug_fused`` once a step), then the step time (three windows);
+    r21d_pad128 also two steps under ``DUALVAR_BN_STATS=pallas``
+    (``channel_sums`` 96 a step) and its pad blocks after both runs; the
+    embedded r21d_pad128 step and the packed S3D-G forward."""
+    by_run = {}
+    for net in VARIANT_NETS:
+        cfg = smoke_cfg("paper_table1_k400", 8, log_root, net=net)
+        label = f"path V {net}"
+        _, by_run[label] = run_path(
+            torch, label, cfg, PATH_S_STEPS,
+            expected_launches(aug_fused=PATH_S_STEPS), TSV4_LOSSES)
+        if net == "r21d_pad128":
+            check_pad_blocks_saved(torch, label, cfg)
+            pallas = cfg.replace(run=dataclasses.replace(
+                cfg.run, name_prefix=cfg.run.name_prefix + "_pallas"))
+            with bn_stats_env(True):
+                _, by_run[label + ", DUALVAR_BN_STATS=pallas"] = run_path(
+                    torch, label + ", DUALVAR_BN_STATS=pallas", pallas,
+                    PATH_S_STEPS, expected_launches(
+                        aug_fused=PATH_S_STEPS,
+                        channel_sums=R21D_SUMS_PER_STEP * PATH_S_STEPS),
+                    TSV4_LOSSES)
+            check_pad_blocks_saved(torch, label + ", pallas", pallas)
+        time_train_steps(torch, cfg, windows=3)
+        torch.cuda.empty_cache()
+    check_embedded_pad128_step(torch, log_root, main_state)
+    check_packed_s3dg(torch, g_state)
+    return by_run
+
+
+# --------------------------------------------------------------------------
+# path E: the serving export
+# --------------------------------------------------------------------------
+
+SERVE_BATCH = 8
+SERVE_REPS = 10
+# the artifact against the eager eval path on the same frames, both bf16
+# autocast: the same ATen ops; probabilities to 1e-3, logits and features
+# to one bf16 ulp at the top of their range (2**-7 of the largest |value|)
+SERVE_PROB_ATOL, SERVE_ULP = 1e-3, 2.0 ** -7
+
+# run in a fresh process: torch only
+_SERVE = """
+import json, statistics, sys, time
+import torch
+out = {}
+for path, frames_path, result_path in json.loads(sys.argv[1]):
+    served = torch.export.load(path).module()
+    frames = torch.load(frames_path).to("cuda")
+    times = []
+    with torch.inference_mode():
+        for i in range(%d + 2):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            result = served(frames)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - tic) * 1e3)
+    torch.save([r.cpu() for r in result], result_path)
+    out[path] = statistics.median(times[2:])
+bad = sorted(m for m in sys.modules if m.startswith("dualvar_tpu"))
+assert not bad, bad
+print(json.dumps(out))
+""" % SERVE_REPS
+
+
+def run_path_e(torch, log_root: str, clf_cfg) -> dict:
+    """Path C's finetuned checkpoint exported by ``python -m
+    dualvar_tpu_torch.export`` (its ``main``, on the card) at B=8, single
+    clip and ten clips; both artifacts loaded and run in one fresh process
+    that imports torch only, against the eager eval path
+    (``export.make_serving_fn``, bf16 as the preset) on the same frames.
+    Prints the export's wall time, the artifact's bytes and the served
+    and eager ms a batch; no kernel is launched (the eval path has none).
+    Returns the launch counts."""
+    from dualvar_tpu_torch import export
+    from dualvar_tpu_torch.aug.pipeline import AugConfig
+    from dualvar_tpu_torch.core.checkpoint import load_state_dict
+    from dualvar_tpu_torch.core.config import CLASSIFIER_PRESETS
+    from dualvar_tpu_torch.train import classifier as clf
+    from dualvar_tpu_torch.train.pretrain import _AUTOCAST
+
+    counters = kernel_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    cfg = CLASSIFIER_PRESETS[CLASSIFIER_PRESET]
+    ckpt = os.path.join(clf.set_path(clf_cfg), "model")
+    model = clf.build_model(cfg)
+    model.load_state_dict(load_state_dict(ckpt))
+    model.to("cuda")
+    aug = AugConfig(img_dim=cfg.data.img_dim, seq_len=cfg.data.seq_len)
+    H0, W0 = cfg.data.scale_hw
+    jobs, eager, report = [], {}, {}
+    for ten in (False, True):
+        name = "ten_clip" if ten else "single_clip"
+        out = os.path.join(log_root, f"serving_{name}.pt2")
+        tic = time.perf_counter()
+        export.main(["--preset", CLASSIFIER_PRESET, "--ckpt", ckpt, "--out",
+                     out, "--batch", str(SERVE_BATCH)]
+                    + (["--ten_clip"] if ten else []))
+        export_s = time.perf_counter() - tic
+        frames = torch.randint(
+            0, 256, (SERVE_BATCH, cfg.data.seq_len * (10 if ten else 1), H0,
+                     W0, 3), dtype=torch.uint8,
+            generator=torch.Generator().manual_seed(7 + ten))
+        frames_path = os.path.join(log_root, f"frames_{name}.pt")
+        torch.save(frames, frames_path)
+        fn = export.make_serving_fn(model, aug, ten,
+                                    _AUTOCAST[cfg.model.dtype])
+        frames = frames.to("cuda")
+        times = []
+        with torch.no_grad():
+            for _ in range(SERVE_REPS + 2):
+                torch.cuda.synchronize()
+                tic = time.perf_counter()
+                result = fn(frames)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - tic) * 1e3)
+        eager[out] = [r.float().cpu() for r in result]
+        report[name] = {"export_s": export_s,
+                        "artifact_bytes": os.path.getsize(out),
+                        "input_shape": list(frames.shape),
+                        "eager_ms": statistics.median(times[2:])}
+        jobs.append((out, frames_path, out + ".result.pt"))
+    launches = {n: w.launches for n, w in counters.items()}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    tic = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", _SERVE, json.dumps(jobs)],
+                         cwd=log_root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        fail(f"path E: the torch-only process failed:\n{run.stderr[-3000:]}")
+    served_ms = json.loads(run.stdout.strip().splitlines()[-1])
+    process_s = time.perf_counter() - tic
+    for (out, _, result_path), name in zip(jobs, ("single_clip",
+                                                  "ten_clip")):
+        got = torch.load(result_path)
+        errs = []
+        for g, w in zip(got, eager[out]):
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                fail(f"path E {name}: served {tuple(g.shape)} against "
+                     f"eager {tuple(w.shape)}, or not finite")
+            errs.append(float((g.float() - w).abs().max()))
+        tol = [SERVE_PROB_ATOL] + [SERVE_ULP * float(w.abs().max())
+                                   for w in eager[out][1:]]
+        report[name].update(
+            served_ms=served_ms[out], output_shapes=[list(g.shape)
+                                                     for g in got],
+            max_abs_err={"probs": errs[0], "logits": errs[1],
+                         "feat": errs[2]},
+            tolerance={"probs": tol[0], "logits": tol[1], "feat": tol[2]})
+        if not all(e <= t for e, t in zip(errs, tol)):
+            fail(f"path E {name}: served outputs off the eager eval path: "
+                 + json.dumps(report[name]))
+    print(f"path E: torch-only serving process {process_s:.1f} s (no "
+          "dualvar_tpu module imported there), " + json.dumps(report),
+          flush=True)
+    if launches != expected_launches():
+        fail(f"path E launched kernels: {launches}")
+    return launches
+
+
+def check_features_on_card(torch, log_root: str, tsv4_state: dict,
+                           moco_state: dict) -> None:
+    """``get_features`` of the main path's TSV4 and path M's MoCo (query
+    encoder) on R(2+1)D-18, float32 with TF32 off, card against CPU on the
+    same weights and clips: four finite (B, T', H', W') maps each, the
+    shapes the CPU gives, within ``FEATURE_F32_ATOL``. ``visualize`` runs in
+    the CPU tests; it writes PNGs through pillow, which this machine may
+    not have."""
+    from dualvar_tpu_torch.train.tasks import make_task
+
+    try:
+        import PIL
+        pillow = f"pillow {PIL.__version__}"
+    except ImportError:
+        pillow = "no pillow"
+    print("visualize: not run by this script; it writes PNGs through "
+          "pillow, which a card machine need not have (this one: "
+          f"{pillow}); tests/test_torch_port_observe.py runs it on the CPU",
+          flush=True)
+    x = torch.randn(2, 16, 112, 112, 3,
+                    generator=torch.Generator().manual_seed(9))
+    old = tf32_off(torch)
+    for label, cfg, state in (
+            ("TSV4", smoke_cfg("paper_table1_k400", 8, log_root), tsv4_state),
+            ("MoCo", smoke_cfg(MOCO_PRESET, 8, log_root, mode="clip-sr-dtw"),
+             moco_state)):
+        task = make_task(cfg.model)
+        task.model.load_state_dict(state)
+        want = task.get_features(x)
+        task.model.to("cuda")
+        got = task.get_features(x.to("cuda"))
+        err = max(float((g.cpu() - w).abs().max())
+                  for g, w in zip(got, want))
+        shapes = [tuple(g.shape) for g in got]
+        print(f"get_features {label}: card vs CPU, TF32 off: shapes {shapes}"
+              f", max err {err:.3e} (atol {FEATURE_F32_ATOL})", flush=True)
+        if len(got) != 4 or shapes != [tuple(w.shape) for w in want] \
+                or not all(torch.isfinite(g).all() for g in got) \
+                or not err <= FEATURE_F32_ATOL:
+            fail(f"get_features {label}: the card's maps are not the CPU's")
+    tf32_restore(torch, old)
+
+
 def main() -> int:
     start = time.perf_counter()
     import torch
@@ -2341,6 +2762,9 @@ def main() -> int:
         by_path.update(run_path_m_resume(torch, log_root))
         by_path.update(run_backbone_steps(torch, log_root))
         by_path.update(run_path_d(torch, log_root, r_state))
+        by_path.update(run_path_v(torch, log_root, state, g_state))
+        by_path["path E"] = run_path_e(torch, log_root, path_c_cfg(log_root))
+        check_features_on_card(torch, log_root, state, moco_state)
         for kernel in kernels:
             # each kernel's count on the main path of the slice that ported
             # it (path R for this slice's); every path's count rides along

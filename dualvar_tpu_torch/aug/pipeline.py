@@ -275,10 +275,12 @@ def classifier_train_batch(generator: torch.Generator,
                            frames_u8: torch.Tensor,
                            cfg: AugConfig) -> torch.Tensor:
     """(B, T, H0, W0, C) uint8 -> (B, T, d, d, C). The classifier always
-    jitters clip-consistently, whatever the pretrain jitter flags say. The
-    ``aug_fused`` wrapper launches the kernel for CUDA frames and takes the
-    plain version for CPU frames; ``cfg.fused`` is not read."""
-    return classifier_train_batch_fused(generator, frames_u8, cfg)
+    jitters clip-consistently, whatever the pretrain jitter flags say.
+    ``cfg.fused`` chooses as for pretrain (``_use_fused``): the kernel for
+    CUDA frames, the plain version for CPU frames; ``'off'`` is refused for
+    CUDA frames."""
+    return classifier_train_batch_fused(
+        generator, frames_u8, cfg, kernel=_use_fused(cfg, frames_u8.device))
 
 
 def _finish(clip_u8: torch.Tensor, cfg: AugConfig) -> torch.Tensor:

@@ -14,10 +14,8 @@ Two fields read differently here:
 * ``ModelConfig.dtype`` is the autocast type of the model's forward pass on
   the card (parameters, BN statistics, heads and losses stay float32);
 * ``AugFlags.fused_aug='auto'`` means the hand-written CUDA kernel
-  (``ops/aug_fused.py``) whenever the batch lies on a CUDA device. Only the
-  pretrain trainer reads it; the classifier's train batch always goes
-  through the kernel's wrapper, which takes the plain version for CPU
-  tensors only.
+  (``ops/aug_fused.py``) whenever the batch lies on a CUDA device, in both
+  trainers; ``'off'`` (the JAX package's unfused path) is refused there.
 """
 
 from __future__ import annotations

@@ -6,7 +6,10 @@ nested dicts of arrays) into a ``state_dict`` for the port's module of the
 same name. The port names its submodules after the flax tree, so the mapping
 is mechanical:
 
-* conv ``kernel (kt, kh, kw, I, O)`` -> ``weight (O, I, kt, kh, kw)``;
+* conv ``kernel (kt, kh, kw, I, O)`` -> ``weight (O, I, kt, kh, kw)``; a
+  conv kernel the module holds as a parameter of its own (the packed S3D's
+  ``conv1x1_kernel``, ``spatial_b1_kernel``, ...) keeps its name in the same
+  layout;
 * Dense ``kernel (I, O)`` -> ``weight (O, I)``;
 * BN ``scale`` -> ``weight``; ``mean`` / ``var`` -> ``running_mean`` /
   ``running_var``;
@@ -68,6 +71,8 @@ def _convert_leaf(path: tuple[str, ...], value: np.ndarray):
         # BatchNorm wrapper: <name>/bn/<leaf> -> <name>.<leaf>
         scope = scope[:-1]
         leaf = _LEAF_NAMES.get(leaf, leaf)
+    elif leaf.endswith("_kernel") and value.ndim == 5:
+        value = value.transpose(4, 3, 0, 1, 2)
     elif leaf == "kernel":
         leaf = "weight"
         if value.ndim == 5:  # conv (kt, kh, kw, I, O) -> (O, I, kt, kh, kw)

@@ -6,8 +6,12 @@ return 5-D feature maps, post-ReLU except ResNet-2d3d's, whose last block has
 no final ReLU (as in the reference). r50's width is its layer 4's true 1024,
 not the reference registry's 2048.
 
-The JAX package's registry variants ``s3d_packed``, ``s3dg_packed``,
-``r21d_tiled`` and ``r21d_pad128`` are not ported (ROADMAP.md, A.7).
+The registry variants: ``s3d_packed`` / ``s3dg_packed`` (the same function
+as ``s3d`` / ``s3dg`` with the branches packed, another parameter layout:
+``s3dg.pack_s3d_params``), ``r21d_pad128`` (the ``r21d`` function with its
+mid widths padded to multiples of 128 by channels that stay zero:
+``r21d.embed_formula_state``) and ``r21d_tiled`` (mid widths snapped to
+multiples of 128: another network).
 """
 
 from __future__ import annotations
@@ -24,21 +28,20 @@ __all__ = ["select_backbone", "C3D", "R3DNet", "R2Plus1DNet", "ResNet2d3d",
 _BACKBONES = {
     "s3d": (lambda: S3D(), 1024),
     "s3dg": (lambda: S3D(gating=True), 1024),
+    "s3d_packed": (lambda: S3D(packed=True), 1024),
+    "s3dg_packed": (lambda: S3D(gating=True, packed=True), 1024),
     "c3d": (C3D, 512),
     "r3d": (R3DNet, 512),
     "r21d": (R2Plus1DNet, 512),
+    "r21d_tiled": (lambda: R2Plus1DNet(mid_mode="tile128"), 512),
+    "r21d_pad128": (lambda: R2Plus1DNet(mid_mode="pad128"), 512),
     "r2d3d18": (lambda: ResNet2d3d(**R2D3D18_SPEC), 256),
     "r50": (lambda: ResNet2d3d(**R2D3D50_SPEC), 1024),
 }
-_NOT_PORTED = ("s3d_packed", "s3dg_packed", "r21d_tiled", "r21d_pad128")
 
 
 def select_backbone(network: str):
-    if network in _BACKBONES:
-        build, feature_size = _BACKBONES[network]
-        return build(), {"feature_size": feature_size}
-    if network in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backbone {network!r} is a registry variant of the JAX package "
-            "that is not ported yet (ROADMAP.md, A.7)")
-    raise NotImplementedError(f"unknown backbone {network!r}")
+    if network not in _BACKBONES:
+        raise NotImplementedError(f"unknown backbone {network!r}")
+    build, feature_size = _BACKBONES[network]
+    return build(), {"feature_size": feature_size}

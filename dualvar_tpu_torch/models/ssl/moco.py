@@ -50,7 +50,7 @@ from ..layers import global_avg_pool3d, l2_normalize
 from .losses import (moco_contrast_loss, moco_tc_contrast_loss,
                      shuffle_rank_loss)
 from .simclr import (apply_segment_perm, calibrate_shuffled, planar_views,
-                     random_segment_perms)
+                     random_segment_perms, stage_attention_maps)
 
 
 class MoCoEncoder(nn.Module):
@@ -87,6 +87,11 @@ class MoCoEncoder(nn.Module):
             clip_emb = l2_normalize(self.clip_head(p), axis=1)
             series = self._series(p) if hasattr(self, "series_head") else None
         return clip_emb, series
+
+    def get_features(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``stage_attention_maps`` of this encoder's backbone (the query
+        encoder's, called on ``MoCo.encoder_q``)."""
+        return stage_attention_maps(self.backbone, x)
 
     def series_embed(self, x: torch.Tensor) -> torch.Tensor:
         """backbone + pool + series head only (the SR dual pass, reference

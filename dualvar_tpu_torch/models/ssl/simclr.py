@@ -76,6 +76,23 @@ def planar_views(block: torch.Tensor) -> torch.Tensor:
     return block.permute(0, 1, 5, 2, 3, 4)
 
 
+def stage_attention_maps(backbone: nn.Module,
+                         x: torch.Tensor) -> list[torch.Tensor]:
+    """Per-stage channel-mean attention maps for visualisation (reference
+    model/simclr.py:123-127 get_features): ``x`` (B, T, H, W, C) clips
+    through a backbone with a ``multi_level`` forward (R(2+1)D) in eval mode
+    with no gradient -> one float32 (B, T', H', W') map a stage. The
+    backbone's train/eval mode is restored."""
+    was_training = backbone.training
+    backbone.eval()
+    try:
+        with torch.no_grad():
+            _, feats = backbone(x.permute(0, 4, 1, 2, 3), multi_level=True)
+    finally:
+        backbone.train(was_training)
+    return [f.float().mean(dim=1) for f in feats]
+
+
 class SimCLRNaked(nn.Module):
     """Reference model/simclr.py:19-121 (SimCLR_Naked)."""
 
@@ -96,6 +113,11 @@ class SimCLRNaked(nn.Module):
             emb = l2_normalize(self.clip_head(pooled), axis=1)
             return nt_xent_loss(emb.reshape(B, 2, -1), self.temperature,
                                 "clip_")
+
+    def get_features(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``stage_attention_maps`` of the backbone (reference
+        model/simclr.py:123-127)."""
+        return stage_attention_maps(self.backbone, x)
 
 
 class SimCLRTimeSeriesV4(nn.Module):
@@ -129,6 +151,10 @@ class SimCLRTimeSeriesV4(nn.Module):
         if self.with_clip:
             self.clip_head = MLPHead(feat, dim)
         self.series_head = MLPHead(feat, series_dim * n_series)
+
+    def get_features(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``stage_attention_maps`` of the backbone, as for SimCLRNaked."""
+        return stage_attention_maps(self.backbone, x)
 
     def pool_backbone(self, x: torch.Tensor) -> torch.Tensor:
         """(N, C, T, H, W) clips -> (N, feat) float32 pooled features."""

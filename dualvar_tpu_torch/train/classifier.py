@@ -44,9 +44,14 @@ Usage:
         -m dualvar_tpu_torch.train.classifier --preset paper_table1_ucf_ft \\
         --synthetic 1 --pretrain log/paper_table1_k400/pretrain/exp/model
 
-Not ported yet (ROADMAP.md): the metrics
-writer (A.12), ``--remat``,
-``--fast_decode 1`` and ``--optim adam`` (A.13).
+Process 0 writes the metrics through ``core/metrics_writer.py`` under
+``{exp}/img/train``: ``local/<metric>`` at each logged step, ``val/top1`` at
+each validation. ``--fused_aug`` (``auto``, ``on``, ``off``) chooses the
+train batch's augmentation as pretrain's flag does
+(``aug/pipeline.py:_use_fused``): ``off`` is refused for CUDA frames.
+
+Not ported (ROADMAP.md A.13): ``--remat``, ``--fast_decode 1`` and
+``--optim adam`` raise.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ from ..core.checkpoint import (CheckpointStore, load_pretrained_backbone,
 from ..core.config import CLASSIFIER_PRESETS, ClassifierConfig
 from ..core.logging import get_logger
 from ..core.meters import AverageMeter, ProgressMeter
+from ..core.metrics_writer import MetricsWriter
 from ..data.indices import load_class_index, load_split
 from ..data.loader import (ClassifierDataset, HostLoader, JpegFrameSource,
                            SyntheticFrameSource, TenClipDataset,
@@ -234,7 +240,8 @@ def _aug_config(cfg: ClassifierConfig) -> AugConfig:
     return AugConfig(
         img_dim=cfg.data.img_dim, seq_len=cfg.data.seq_len,
         with_color_jitter=cfg.aug.with_color_jitter,
-        rand_flip=cfg.aug.rand_flip, jitter_order=cfg.aug.jitter_order)
+        rand_flip=cfg.aug.rand_flip, jitter_order=cfg.aug.jitter_order,
+        fused=cfg.aug.fused_aug)
 
 
 class TrainSetup(NamedTuple):
@@ -331,6 +338,8 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
             model, optimizer, scheduler, generator, logger)
         if resumed:
             start_epoch, global_step, best_acc = resumed
+    writer = (MetricsWriter(os.path.join(exp_path, "img", "train"))
+              if dist.is_main() else None)
     final: dict[str, float] = {}
     done = False
     try:
@@ -357,6 +366,9 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
                     for k, m in meters.items():
                         m.update(final[k], cfg.optim.batch_size)
                     progress.display(it)
+                    if writer:
+                        for k, v in final.items():
+                            writer.add_scalar(f"local/{k}", v, global_step)
                 global_step += 1
                 if max_steps is not None and global_step >= max_steps:
                     done = True
@@ -378,6 +390,8 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
                 logger.info(
                     f"val Epoch: [{epoch}] Loss: {sums['loss'] / n:.4f} "
                     f"Acc@1: {val_acc:.4f} Acc@5: {sums['top5'] / n:.4f}")
+                if writer:
+                    writer.add_scalar("val/top1", val_acc, epoch)
                 final["val_top1"] = val_acc
                 best_acc = max(best_acc, val_acc)
                 generators = dist.gather_generator_states(generator)
@@ -397,6 +411,8 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
     finally:
         loader.close()
         val_loader.close()
+        if writer:
+            writer.close()
         if store is not None:
             store.close()
     return final
@@ -675,6 +691,10 @@ def main(argv: list[str] | None = None):
                    choices=[None, "batch", "sample"],
                    help="color-jitter op-order granularity: 'sample' is the "
                         "reference-exact per-clip order")
+    p.add_argument("--fused_aug", default=None,
+                   choices=[None, "auto", "on", "off"],
+                   help="fused CUDA aug kernel (default auto: on for CUDA; "
+                        "off is refused for CUDA frames)")
     p.add_argument("--with_color_jitter", type=int, default=None,
                    choices=[None, 0, 1],
                    help="finetune-time color jitter (classifier.py:50)")
@@ -767,7 +787,7 @@ def main(argv: list[str] | None = None):
         data = dataclasses.replace(data, synthetic=bool(args.synthetic))
     if args.data_root or args.db_path:
         data = dataclasses.replace(data, synthetic=False)
-    aug = _override(cfg.aug, args, ("jitter_order",))
+    aug = _override(cfg.aug, args, ("jitter_order", "fused_aug"))
     for k in ("with_color_jitter", "rand_flip", "aug_crop"):
         v = getattr(args, k)
         if v is not None:

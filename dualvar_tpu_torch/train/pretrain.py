@@ -36,9 +36,21 @@ Usage:
         --synthetic 1 --resume auto
     python -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
         --data_root ... --db_path ...
+    python -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
+        --synthetic 1 --max_steps 5 --profile_steps 2
+    python -m dualvar_tpu_torch.train.pretrain --preset paper_table1_k400 \\
+        --synthetic 1 --visualize --pretrain log/.../model
 
-Not ported yet (ROADMAP.md): ``--visualize``, the TensorBoard metrics
-writer, ``--profile_steps``.
+Process 0 writes the metrics through ``core/metrics_writer.py`` under
+``{exp}/img/pretrain`` (``metrics.jsonl``, and TensorBoard where
+tensorboardX imports): ``local/<metric>`` at each logged step,
+``global/<name>_loss`` and ``global/<name>_acc`` at each epoch's end.
+``--profile_steps N`` traces N steps after the first with
+``torch.profiler`` (the card's kernels included) into
+``{exp}/img/profile``. ``--visualize`` writes input frames and per-stage
+attention maps as images instead of training (``visualize``).
+
+Not ported (ROADMAP.md A.13): ``--remat`` and ``--fast_decode 1`` raise.
 """
 
 from __future__ import annotations
@@ -60,6 +72,8 @@ from ..core.checkpoint import (CheckpointStore, load_state_dict,
 from ..core.config import PRETRAIN_PRESETS, PretrainConfig
 from ..core.logging import get_logger
 from ..core.meters import AverageMeter, MeterBank, ProgressMeter
+from ..core.metrics_writer import MetricsWriter
+from ..core.utils import batch_denorm
 from ..data.indices import load_class_index, load_split
 from ..data.loader import (HostLoader, JpegFrameSource, PretrainDataset,
                            SyntheticFrameSource, synthetic_entries)
@@ -176,6 +190,26 @@ def set_path(cfg: PretrainConfig, create: bool = True) -> str:
     return exp
 
 
+def aug_config(cfg: PretrainConfig) -> AugConfig:
+    """The augmentation of the train step (and of ``visualize``)."""
+    return AugConfig(
+        img_dim=cfg.data.img_dim, seq_len=cfg.data.seq_len,
+        aug_temp_consist=cfg.aug.aug_temp_consist,
+        aug_temp_grad_consist=cfg.aug.aug_temp_grad_consist,
+        jitter_order=cfg.aug.jitter_order,
+        fused=cfg.aug.fused_aug,
+    )
+
+
+def build_task(cfg: PretrainConfig):
+    """The task of ``cfg``, its parameters drawn from ``cfg.run.seed`` (the
+    process-global RNG is left untouched)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.run.seed)
+        return make_task(cfg.model,
+                         torch.Generator().manual_seed(cfg.run.seed))
+
+
 def _resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -208,10 +242,7 @@ def setup_training(cfg: PretrainConfig,
     ``cfg.run.seed + rank``: process 0 draws what a run of one process
     draws."""
     device = _resolve_device(device)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.run.seed)
-        task = make_task(cfg.model,
-                         torch.Generator().manual_seed(cfg.run.seed))
+    task = build_task(cfg)
     model = task.model.to(device)
     model.train()
     dist.assert_replicas_equal(
@@ -222,16 +253,9 @@ def setup_training(cfg: PretrainConfig,
                         seed=cfg.run.seed, num_workers=cfg.data.workers,
                         process_index=dist.rank(),
                         process_count=dist.world_size())
-    aug_cfg = AugConfig(
-        img_dim=cfg.data.img_dim, seq_len=cfg.data.seq_len,
-        aug_temp_consist=cfg.aug.aug_temp_consist,
-        aug_temp_grad_consist=cfg.aug.aug_temp_grad_consist,
-        jitter_order=cfg.aug.jitter_order,
-        fused=cfg.aug.fused_aug,
-    )
     optimizer, scheduler = make_optimizer(cfg, task.parameters(),
                                           len(loader))
-    train_step = make_train_step(task, optimizer, scheduler, aug_cfg,
+    train_step = make_train_step(task, optimizer, scheduler, aug_config(cfg),
                                  _AUTOCAST[cfg.model.dtype])
     # on the device: the augmentation's draws and the segment shuffles are
     # made there, with no copy from the host
@@ -328,12 +352,60 @@ def load_pretrain_weights(model: torch.nn.Module, path: str,
     return report
 
 
+class _StepProfiler:
+    """``torch.profiler`` over the steps ``first + 1 .. first + steps`` of
+    a run whose first step is ``first`` (the JAX trainer's window: the
+    first step, which builds and warms up, is left out), CUDA activity
+    included on the card; the trace goes to ``{directory}/rank<r>.pt.
+    trace.json``. A run that ends inside the window writes what it
+    traced."""
+
+    def __init__(self, steps: int, first: int, directory: str,
+                 device: torch.device, logger):
+        self.steps, self.first = steps, first
+        self.path = os.path.join(directory, f"rank{dist.rank()}.pt.trace.json")
+        self.device, self.logger = device, logger
+        self.prof, self.traced = None, 0
+
+    def before(self, step: int) -> None:
+        if self.steps and step == self.first + 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=activities)
+            self.prof.start()
+
+    def after(self, step: int) -> None:
+        if self.prof is None:
+            return
+        self.traced += 1
+        if step == self.first + self.steps:
+            self.finish()
+
+    def finish(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+        self.logger.info(f"profiler trace of {self.traced} steps written to "
+                         f"'{self.path}'")
+
+
 def train(cfg: PretrainConfig, max_steps: int | None = None,
-          device: str | torch.device = "cuda") -> dict[str, float]:
+          device: str | torch.device = "cuda",
+          profile_steps: int = 0) -> dict[str, float]:
     """Full pretraining loop. Returns the last logged step's metrics (under
     a process group the global batch's, on every process). Joins the
     process group torchrun's environment names (``dist.init_distributed``);
-    a group the caller made is used as it is."""
+    a group the caller made is used as it is. ``profile_steps`` > 0 traces
+    that many steps after the run's first (``_StepProfiler``) under
+    ``{exp}/img/profile``."""
     device = _resolve_device(device)
     dist.init_distributed(device)
     exp_path = set_path(cfg, create=dist.is_main())
@@ -382,6 +454,11 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
     elif cfg.run.pretrain:
         load_pretrain_weights(model, cfg.run.pretrain, logger)
         logger.info(f"=> loaded pretrain weights from '{cfg.run.pretrain}'")
+    writer = (MetricsWriter(os.path.join(exp_path, "img", "pretrain"))
+              if dist.is_main() else None)
+    profiler = _StepProfiler(profile_steps, global_step,
+                             os.path.join(exp_path, "img", "profile"),
+                             device, logger)
     final_metrics: dict[str, float] = {}
     done = False
     try:
@@ -412,7 +489,9 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
                 frames = lookahead
                 lookahead = next(batches, None)
                 t_data.update(time.time() - end)
+                profiler.before(global_step)
                 metrics = train_step(frames, generator)
+                profiler.after(global_step)
                 if (it + 1) % cfg.run.print_freq == 0 or it == steps_per_epoch - 1:
                     # .item() waits for the device: the only sync point
                     final_metrics = {k: v.item() for k, v in metrics.items()}
@@ -428,6 +507,9 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
                             bank.acc(k[:-5]).update(v, B)
                     progress.meters = [t_batch, t_data] + bank.all_meters()
                     progress.display(it)
+                    if writer:
+                        for k, v in final_metrics.items():
+                            writer.add_scalar(f"local/{k}", v, global_step)
                 t_batch.update(time.time() - end)
                 end = time.time()
                 global_step += 1
@@ -437,6 +519,11 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
 
             logger.info(
                 f"Epoch: [{epoch}/{cfg.optim.epochs}]\tT-epoch:{time.time() - tic:.2f}")
+            if writer:
+                for key, m in bank.losses.items():
+                    writer.add_scalar(f"global/{key}_loss", m.avg, epoch)
+                for key, m in bank.accs.items():
+                    writer.add_scalar(f"global/{key}_acc", m.avg, epoch)
             last = epoch == cfg.optim.epochs - 1 or done
             if (epoch + 1) % cfg.run.eval_freq == 0 or last:
                 train_acc = bank.accs["clip"].avg if "clip" in bank.accs else 0.0
@@ -459,13 +546,88 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
             if done:
                 break
     finally:
+        profiler.finish()
         loader.close()
+        if writer:
+            writer.close()
         if store is not None:
             store.close()
 
     logger.info(
         f"Training from ep {start_epoch} to ep {cfg.optim.epochs} finished")
     return final_metrics
+
+
+def visualize(cfg: PretrainConfig, n_samples: int = 4,
+              device: str | torch.device = "cuda") -> list[str]:
+    """The reference's ``--visualize`` (pretrain.py:555,581-584), as the
+    JAX package's ``visualize``: the first ``n_samples`` clips of an
+    unshuffled loader through the train step's augmentation; view 0's middle
+    frame, denormalised, and the middle time slice of each stage's
+    channel-mean attention map (min-max scaled) written as PNGs under
+    ``{exp}/img/`` (``vis_sample{i}_input_0.png``,
+    ``vis_sample{i}_stage{s}_0.png``) and to TensorBoard where it imports.
+
+    The weights come from ``cfg.run.pretrain`` (a weights-only load) when
+    set, otherwise from the seeded init. Needs pillow and the multi_level
+    backbone (``r21d``). Returns the written files' paths."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        raise RuntimeError(
+            "--visualize writes PNGs and needs pillow (without it the "
+            "writer falls back to .npy dumps and the returned paths would "
+            "be wrong)")
+    if cfg.model.net != "r21d":
+        raise ValueError(
+            f"--visualize needs the multi_level backbone ('r21d'), got "
+            f"{cfg.model.net!r} (reference get_features, model/simclr.py:123)")
+    device = _resolve_device(device)
+    exp_path = set_path(cfg)
+    logger = get_logger(os.path.join(exp_path, "vis_log"))
+    task = build_task(cfg)
+    task.model.to(device)
+    if cfg.run.pretrain:
+        load_pretrain_weights(task.model, cfg.run.pretrain, logger)
+        logger.info(f"=> visualizing weights from '{cfg.run.pretrain}'")
+
+    dataset = build_dataset(cfg, task.n_views)
+    B = min(n_samples, len(dataset))
+    # unshuffled: the reference disables shuffling under --visualize
+    # (pretrain.py:555), so runs compare across checkpoints
+    with HostLoader(dataset, B, shuffle=False, seed=cfg.run.seed,
+                    num_workers=cfg.data.workers) as loader:
+        frames = next(iter(loader.epoch(0)))["frames"]
+    generator = torch.Generator(device=device).manual_seed(cfg.run.seed + 1)
+    with torch.no_grad():
+        block = pretrain_batch(generator, torch.from_numpy(frames).to(device),
+                               aug_config(cfg))
+    view0 = block[:, 0]  # (B, T, d, d, 3), normalised
+    dtype = _AUTOCAST[cfg.model.dtype]
+    with torch.autocast(device_type=device.type, dtype=dtype,
+                        enabled=dtype != torch.float32):
+        attn = task.get_features(view0)
+
+    writer = MetricsWriter(exp_path)  # images land under {exp}/img/
+    written = []
+    mid = view0.shape[1] // 2
+    inputs = batch_denorm(view0[:, mid].permute(0, 3, 1, 2)).clamp(0.0, 1.0)
+    inputs = inputs.permute(0, 2, 3, 1).float().cpu().numpy()
+    img_dir = os.path.join(exp_path, "img")
+    for i in range(B):
+        writer.add_image(f"vis/sample{i}/input", inputs[i], 0)
+        written.append(os.path.join(img_dir, f"vis_sample{i}_input_0.png"))
+        for s, fmap in enumerate(attn):
+            a = fmap[i].cpu().numpy()  # (T', H', W')
+            a = a[a.shape[0] // 2]  # middle time slice
+            lo, hi = float(a.min()), float(a.max())
+            a = (a - lo) / (hi - lo) if hi > lo else a * 0.0
+            writer.add_image(f"vis/sample{i}/stage{s}", a, 0)
+            written.append(os.path.join(img_dir,
+                                        f"vis_sample{i}_stage{s}_0.png"))
+    writer.close()
+    logger.info(f"wrote {len(written)} visualization images under {img_dir}")
+    return written
 
 
 def _override(group, args, names):
@@ -497,6 +659,8 @@ def main(argv: list[str] | None = None):
     p.add_argument("--moco-t", dest="moco_t", type=float, default=None)
     p.add_argument("--moco_shuffle_bn", type=int, default=None,
                    help="BN batch-shuffle parity mode: number of BN groups")
+    p.add_argument("--remat", action="store_true", default=None,
+                   help="not ported (ROADMAP.md A.13): raises")
     p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
                    help="autocast type of the model forward on the card")
     p.add_argument("--packed_encode", type=int, default=None,
@@ -526,6 +690,9 @@ def main(argv: list[str] | None = None):
     p.add_argument("--img_dim", type=int, default=None)
     p.add_argument("-j", "--workers", type=int, default=None)
     p.add_argument("--num_seq", type=int, default=None)
+    p.add_argument("--fast_decode", type=int, default=None, choices=[None, 0, 1],
+                   help="the native JPEG decode; 1 is not ported "
+                        "(ROADMAP.md A.13): raises")
     # optim group
     p.add_argument("--optim", default=None, choices=[None, "sgd"])
     p.add_argument("--batch_size", type=int, default=None)
@@ -550,9 +717,25 @@ def main(argv: list[str] | None = None):
                    help="overlap checkpoint writes with training (default 1)")
     # run control
     p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="trace this many steps after the first with "
+                        "torch.profiler into {exp}/img/profile")
+    p.add_argument("--visualize", action="store_true",
+                   help="write input and attention-map images under "
+                        "{exp}/img/ instead of training (reference "
+                        "pretrain.py:581; needs --net r21d; use --pretrain "
+                        "for trained weights)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
+    if args.remat:
+        raise NotImplementedError(
+            "--remat: activation rematerialisation is not ported "
+            "(ROADMAP.md A.13)")
+    if args.fast_decode:
+        raise NotImplementedError(
+            "--fast_decode 1: the native JPEG decoder is not ported "
+            "(ROADMAP.md A.13)")
 
     cfg = PRETRAIN_PRESETS[args.preset]
     if args.packed_encode is not None:
@@ -590,8 +773,12 @@ def main(argv: list[str] | None = None):
     if args.async_ckpt is not None:
         cfg = cfg.replace(run=dataclasses.replace(
             cfg.run, async_ckpt=bool(args.async_ckpt)))
+    if args.visualize:
+        visualize(cfg, device=args.device)
+        return
     try:
-        train(cfg, max_steps=args.max_steps, device=args.device)
+        train(cfg, max_steps=args.max_steps, device=args.device,
+              profile_steps=args.profile_steps)
     finally:
         dist.destroy()
 

@@ -46,6 +46,11 @@ class SimCLRTask:
     def parameters(self):
         return self.model.parameters()
 
+    def get_features(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """Per-stage attention maps for ``--visualize`` (a multi_level
+        backbone: r21d)."""
+        return self.model.get_features(x)
+
     def forward(self, block: torch.Tensor, generator=None, perm=None):
         if self.n_views == 2:
             return self.model(block)
@@ -73,6 +78,11 @@ class MoCoTask:
         """The query encoder's parameters: the key encoder moves only by its
         momentum update."""
         return self.model.encoder_q.parameters()
+
+    def get_features(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """The query encoder's per-stage attention maps for
+        ``--visualize``."""
+        return self.model.encoder_q.get_features(x)
 
     def forward(self, block: torch.Tensor, generator=None, perm=None,
                 bn_perm=None):

@@ -150,8 +150,8 @@ def test_train_batch_draws_and_dispatch():
     b = classifier_train_batch(torch.Generator().manual_seed(5), frames, cfg)
     assert torch.equal(a, b) and tuple(a.shape) == (4, T, SIZE, SIZE, 3)
     assert bool(torch.isfinite(a).all())
-    # the kernel's wrapper, given a CPU tensor, takes the plain version:
-    # the same numbers as the plain version asked for by name
+    # fused='auto' on CPU frames takes the plain version (as the kernel's
+    # wrapper would for a CPU tensor): the same numbers as asked by name
     plain = classifier_train_batch_fused(torch.Generator().manual_seed(5),
                                          frames, cfg, kernel=False)
     assert torch.equal(a, plain)

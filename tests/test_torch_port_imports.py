@@ -48,6 +48,9 @@ print("\\n".join(names))
             "dualvar_tpu_torch.core.checkpoint",
             "dualvar_tpu_torch.core.dist",
             "dualvar_tpu_torch.core.convert",
+            "dualvar_tpu_torch.core.metrics_writer",
+            "dualvar_tpu_torch.core.utils",
+            "dualvar_tpu_torch.export",
             "dualvar_tpu_torch.models.ssl.moco",
             "dualvar_tpu_torch.train.pretrain"} <= set(names)
     # the kernels' sources are data beside the package, not modules of it

@@ -133,9 +133,10 @@ def test_train_refuses_a_missing_card_and_unported_models(tmp_path):
             train(_smoke_cfg(tmp_path, mode="clip-sr-dtw"), max_steps=1)
     with pytest.raises(NotImplementedError, match="unknown model"):
         make_task(dataclasses.replace(cfg.model, model="byol"))
-    # a model config that names a backbone still to be ported
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_task(dataclasses.replace(cfg.model, net="s3dg_packed"))
+    # a model config that names a backbone no registry has (the registry
+    # variants, s3dg_packed among them, are ported)
+    with pytest.raises(NotImplementedError, match="unknown backbone"):
+        make_task(dataclasses.replace(cfg.model, net="s3dg_tiled"))
 
 
 @pytest.mark.parametrize("model,n_views,cls", [
