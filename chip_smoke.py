@@ -84,6 +84,30 @@ Phases, each fatal on failure (non-zero exit):
      torch only, against the eager eval path on the same frames (no kernel
      launched); the export's time, the artifact's bytes, the served and the
      eager ms a batch;
+   - path J, the real-data path: a frame tree in the reference layout
+     (``{class}/{video}/image_%05d.jpg``, 26 videos of 72 frames at
+     UCF101's extracted 320x240, JPEG quality 80) written with PIL from a
+     seed, its split CSV from the port's ``write_csv``, then
+     ``paper_table1_k400`` trained from the files at B=8 (3 steps,
+     ``aug_fused`` 3) through the native batch assembler where ``g++`` and
+     libjpeg build the decoder, else through PIL; one epoch with
+     ``--fast_decode 1`` (refused without the native decoder, as it must
+     be); the native batch against the per-sample route bitwise and the
+     native decode against PIL's where it was built; decode ms a batch by
+     route; the ``Data`` wait a step and the step's wall ms of train()'s
+     loop on the files against the same preset on synthetic frames;
+   - path F, the unfused augmentation and the training options:
+     ``paper_table1_k400`` at B=8 with ``--aug_temp_consist 0``, with
+     ``aug_temp_grad_consist`` (set in the config: neither package's parser
+     has the flag) and with ``--fused_aug off``, 2 steps each with no
+     ``aug_fused`` launch; the unfused batch at B=8 card against CPU on the
+     same decisions in each jitter mode, against the kernel in the
+     clip-consistent one, and timed against it; 2 steps with ``--optim
+     adam`` and 2 classifier steps (``paper_table1_ucf_ft``) with ``--optim
+     adam --remat`` (Adam state in the checkpoint); one main-path step at
+     B=32 under ``DUALVAR_BN_STATS=pallas`` with and without ``--remat``
+     (running statistics and losses bitwise, ``channel_sums`` 96 each), and
+     the B=32 step time and peak memory with and without it;
    - what the main path's run writes besides its checkpoint: the profiler
      trace of ``--profile_steps 2`` (it must name the ``aug_fused``
      kernel, once a traced step) and the metrics writer's
@@ -1439,8 +1463,9 @@ def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
                 "model": cfg.model.model, "mode": cfg.model.mode,
                 "bn_stats": os.environ.get("DUALVAR_BN_STATS", "aten"),
                 "n_series": cfg.model.n_series}
-    print("step time: " + json.dumps({
-        **what, "batch_size": batch_size, "steps": n, "windows": windows,
+    record = {
+        **what, "remat": cfg.model.remat, "optim": cfg.optim.optim,
+        "batch_size": batch_size, "steps": n, "windows": windows,
         "dtype": cfg.model.dtype, "world_size": dist.world_size(),
         "backend": torch.distributed.get_backend() if dist.active() else None,
         "collectives_per_step": {k: v / (n * windows)
@@ -1448,9 +1473,11 @@ def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
         "ms_per_step": ms, "clips_per_s": batch_size / ms * 1e3,
         "window_ms_per_step": window_ms,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-    }), flush=True)
+    }
+    print("step time: " + json.dumps(record), flush=True)
     del setup
     torch.cuda.empty_cache()
+    return record
 
 
 def check_f32_forward(torch, label: str, cfg, state: dict,
@@ -2205,8 +2232,10 @@ def check_bn_routes_at_world_one(torch) -> None:
         ref = bn_reference_float64(torch, x, w, b, g)
         names = ("y", "mean", "var", "dx", "dweight", "dbias")
         errs = {}
-        for route, outs in (("_SyncBN", run(_SyncBN.apply)),
-                            ("ATen", run(aten))):
+        def sync_bn(*args):  # (y, mean, var) of its five outputs
+            return _SyncBN.apply(*args)[:3]
+
+        for route, outs in (("_SyncBN", run(sync_bn)), ("ATen", run(aten))):
             for name, a, c in zip(names, outs, ref):
                 scale = float(c.abs().max())
                 err = float((a.detach().double() - c).abs().max())
@@ -2691,6 +2720,498 @@ def check_features_on_card(torch, log_root: str, tsv4_state: dict,
     tf32_restore(torch, old)
 
 
+# --------------------------------------------------------------------------
+# path J: the real-data path (JPEG frame tree -> split CSV -> loader)
+# --------------------------------------------------------------------------
+
+# a frame tree in the reference layout at UCF101's extracted size: 130
+# videos in 2 classes, each longer than the preset's sampler reaches (3
+# views of 16 frames at ds 4: a span of 64); 2 go to the validation carve,
+# 128 train: 16 steps an epoch at B=8, so that the timed loader window
+# (warm-up, timed steps, the lookahead and the loader's prefetch) lies
+# inside one epoch
+PATH_J_CLASSES = ("ApplyEyeMakeup", "Archery")
+PATH_J_VIDEOS = 130
+PATH_J_VAL = 2
+PATH_J_FRAMES = 72
+PATH_J_HW = (240, 320)
+PATH_J_QUALITY = 80
+PATH_J_STEPS = 3
+PATH_J_EPOCH_STEPS = (PATH_J_VIDEOS - PATH_J_VAL) // 8
+# timed loader steps after the warm-up steps, inside epoch 0 (train()'s
+# loop): the first waits of an epoch cover its first prefetch window
+PATH_J_WARMUP_STEPS = 3
+PATH_J_TIMED_STEPS = 10
+
+
+def write_frame_tree(root: str, seed: int = 0) -> tuple[str, str]:
+    """``{root}/frames/{class}/{video}/image_%05d.jpg`` (320x240, JPEG
+    quality 80, written with PIL from a thread pool: a smooth colour field
+    with a little noise, one a video, drifting 3 pixels a frame) and the
+    UCF101 split lists of its videos under ``{root}/splits``; returns
+    (frame root, split root)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    frames, splits = os.path.join(root, "frames"), os.path.join(root,
+                                                                "splits")
+    os.makedirs(splits, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    H, W = PATH_J_HW
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    lines, jobs = [], []
+    for v in range(PATH_J_VIDEOS):
+        c = v % len(PATH_J_CLASSES)
+        cls = PATH_J_CLASSES[c]
+        name = f"v_{cls}_g{v:02d}_c01"
+        vdir = os.path.join(frames, cls, name)
+        os.makedirs(vdir)
+        fy, fx, ph = (rng.uniform(0.5, 4.0, 3), rng.uniform(0.5, 4.0, 3),
+                      rng.uniform(0, 2 * np.pi, 3))
+        base = np.stack([127.5 + 90 * np.sin(
+            2 * np.pi * (fy[k] * y / H + fx[k] * x / W) + ph[k])
+            for k in range(3)], -1) + rng.integers(-12, 13, (H, W, 3))
+        base = base.clip(0, 255).astype(np.uint8)
+        jobs += [(base, 3 * i, os.path.join(vdir, f"image_{i + 1:05d}.jpg"))
+                 for i in range(PATH_J_FRAMES)]
+        lines.append(f"{cls}/{name}.avi {c + 1}")
+
+    def save(job):
+        base, shift, path = job
+        Image.fromarray(np.roll(base, shift, axis=1)).save(
+            path, quality=PATH_J_QUALITY)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(save, jobs))
+    with open(os.path.join(splits, "trainlist01.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(os.path.join(splits, "testlist01.txt"), "w") as fh:
+        fh.write("\n".join(line.split()[0] for line in lines[:4]) + "\n")
+    return frames, splits
+
+
+def path_j_cfg(log_root: str, index_root: str, frame_root: str,
+               fast_decode: bool = False, synthetic: bool = False):
+    """``--preset paper_table1_k400 --data_root <index> --db_path <frames>``
+    at B=8 (``--fast_decode 1`` if asked); ``synthetic``: the same preset on
+    synthetic frames instead."""
+    cfg = smoke_cfg("paper_table1_k400", 8, log_root)
+    data = dataclasses.replace(
+        cfg.data, synthetic=synthetic, data_root=index_root,
+        db_path=frame_root, val_size=PATH_J_VAL, fast_decode=fast_decode)
+    tag = "synthetic" if synthetic else ("fast" if fast_decode else "exact")
+    return cfg.replace(data=data, run=dataclasses.replace(
+        cfg.run, name_prefix=f"chip_smoke_path_j_{tag}"))
+
+
+def time_loader_steps(torch, cfg, steps: int = PATH_J_TIMED_STEPS) -> dict:
+    """train()'s loop over epoch 0 of ``cfg``'s own loader (batches placed
+    on the card one step ahead, none carried across the epoch's end),
+    ``print_freq`` 1 (the loss read back each step): after
+    ``PATH_J_WARMUP_STEPS`` steps, the ``Data`` meter's wait a step (the
+    host waiting for the next batch), the step's wall ms and the rest of
+    the step (wall less wait: the step's dispatch and the read-back, which
+    host threads decoding beside it can slow). The window ends at least
+    the loader's prefetch depth before the epoch does, so that every timed
+    step has the loader in its steady state."""
+    setup = trainer_of(cfg).setup_training(cfg, "cuda")
+    need = PATH_J_WARMUP_STEPS + steps + 1 + setup.loader.prefetch
+    if len(setup.loader) < need:
+        fail(f"loader steps of {cfg.run.name_prefix}: {len(setup.loader)} "
+             f"steps an epoch, the timed window needs {need}")
+
+    def placed():
+        for b in setup.loader.epoch(0):
+            yield torch.from_numpy(b["frames"]).to("cuda", non_blocking=True)
+
+    with setup.loader:
+        batches = placed()
+        lookahead = next(batches, None)
+        waits, walls = [], []
+        end = time.perf_counter()
+        for i in range(PATH_J_WARMUP_STEPS + steps):
+            frames, lookahead = lookahead, next(batches, None)
+            wait = time.perf_counter() - end
+            metrics = setup.train_step(frames, setup.generator)
+            loss = metrics["total_loss"].item()
+            now = time.perf_counter()
+            if i >= PATH_J_WARMUP_STEPS:
+                waits.append(wait)
+                walls.append(now - end)
+            end = now
+        batches.close()
+    if not math.isfinite(loss):
+        fail(f"loader steps of {cfg.run.name_prefix}: total_loss {loss}")
+    src = setup.loader.dataset.source
+    route = ("synthetic" if cfg.data.synthetic else
+             "native" if src.native_batch is not None else "PIL")
+    record = {"route": route, "fast_decode": cfg.data.fast_decode,
+              "batch_size": cfg.optim.batch_size,
+              "steps_per_epoch": len(setup.loader),
+              "warmup_steps": PATH_J_WARMUP_STEPS, "steps": steps,
+              "workers": cfg.data.workers, "cpu_count": os.cpu_count(),
+              "data_wait_ms_per_step": statistics.mean(waits) * 1e3,
+              "data_wait_ms_by_step": [w * 1e3 for w in waits],
+              "ms_per_step": statistics.mean(walls) * 1e3,
+              "ms_by_step": [w * 1e3 for w in walls],
+              "step_less_wait_ms_per_step": statistics.mean(
+                  w - d for w, d in zip(walls, waits)) * 1e3}
+    print("path J loader steps: " + json.dumps(record), flush=True)
+    del setup
+    torch.cuda.empty_cache()
+    return record
+
+
+def time_decode_routes(cfg) -> dict:
+    """ms to decode one B=8 batch of the preset's plans (8 x 48 frames,
+    320x240 -> 171x128): PIL one frame at a time on one thread and through
+    the loader's worker pool, and the native assembler (exact and fast) with
+    the loader's threads where the decoder was built. Median of 5."""
+    from dualvar_tpu_torch.data.loader import HostLoader, JpegFrameSource
+    from dualvar_tpu_torch.train.pretrain import build_dataset
+
+    dataset = build_dataset(cfg)
+    indices = list(range(cfg.optim.batch_size))
+    out = {}
+
+    def median_ms(fn, reps=5):
+        fn()  # page cache warm: every route reads the same files
+        times = []
+        for _ in range(reps):
+            tic = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - tic) * 1e3)
+        return statistics.median(times)
+
+    pil = dataclasses.replace(dataset, source=JpegFrameSource(
+        cfg.data.db_path, scale=cfg.data.scale_hw, use_native=False))
+    with HostLoader(pil, len(indices), num_workers=cfg.data.workers) as ld:
+        out["PIL, 1 thread"] = median_ms(
+            lambda: [ld._sample(0, i) for i in indices])
+        out[f"PIL, {cfg.data.workers} loader threads"] = median_ms(
+            lambda: [f.result() for f in [ld.pool.submit(ld._sample, 0, i)
+                                          for i in indices]])
+    for fast in (False, True):
+        try:
+            src = JpegFrameSource(cfg.data.db_path, scale=cfg.data.scale_hw,
+                                  fast_decode=fast)
+        except RuntimeError:
+            continue
+        if src.native_batch is None:
+            continue
+        ds = dataclasses.replace(dataset, source=src)
+        with HostLoader(ds, len(indices),
+                        num_workers=cfg.data.workers) as ld:
+            out[f"native{' fast' if fast else ''}, "
+                f"{cfg.data.workers // 2} threads"] = median_ms(
+                lambda: ld._assemble(0, indices))
+    print("path J decode ms a batch: " + json.dumps(out), flush=True)
+    return out
+
+
+def check_native_batches(cfg) -> dict:
+    """The native assembler's batch of a few indices against the per-sample
+    route bitwise, and the native decode against PIL's (tests/test_native.py's
+    band: mean difference under 0.6, none over 8 levels)."""
+    import numpy as np
+    from PIL import Image
+
+    from dualvar_tpu_torch.data.loader import HostLoader
+    from dualvar_tpu_torch.train.pretrain import build_dataset
+
+    dataset = build_dataset(cfg)
+    n = len(dataset)
+    indices = [5 % n, 0, n - 1, 3 % n]
+    with HostLoader(dataset, 4, num_workers=cfg.data.workers) as loader:
+        batch = loader._assemble(1, indices)
+        samples = [loader._sample(1, i) for i in indices]
+    for key in batch:
+        if not np.array_equal(batch[key],
+                              np.stack([s[key] for s in samples])):
+            fail(f"path J: the native batch's {key} differs from the "
+                 "per-sample route")
+    vname, idx, _ = dataset.plan(0, np.random.default_rng(0))
+    paths = dataset.source.paths(vname, idx[:8])
+    H, W = cfg.data.scale_hw
+    pil = np.stack([np.asarray(Image.open(p).convert("RGB").resize(
+        (W, H), Image.BICUBIC)) for p in paths])
+    diff = np.abs(dataset.source(vname, idx[:8]).astype(int)
+                  - pil.astype(int))
+    if not (diff.mean() < 0.6 and diff.max() <= 8):
+        fail(f"path J: native decode vs PIL mean {diff.mean()} max "
+             f"{diff.max()}")
+    out = {"assembler_bitwise": True, "vs_pil_mean": float(diff.mean()),
+           "vs_pil_max": int(diff.max())}
+    print("path J native checks: " + json.dumps(out), flush=True)
+    return out
+
+
+def run_path_j(torch, log_root: str) -> dict:
+    """Path J: a frame tree written from a seed, its split CSV from the
+    port's ``write_csv``, then ``train()`` from the files (the native
+    assembler where the decoder builds, else PIL): ``aug_fused`` once a
+    step; one epoch with ``--fast_decode 1`` (refused where the native
+    decoder is not built); the native checks; decode ms by route; the
+    ``Data`` wait and the step on real files (with the preset's decode
+    threads and half as many) against synthetic frames."""
+    from dualvar_tpu_torch import native
+    from dualvar_tpu_torch.data.prep import write_csv
+
+    root = os.path.join(log_root, "path_j")
+    tic = time.perf_counter()
+    frame_root, split_root = write_frame_tree(root)
+    index_root = os.path.join(root, "index")
+    write_csv.main(["ucf101", "--frame_root", frame_root, "--split_root",
+                    split_root, "--out_root", index_root, "--which_split",
+                    "1"])
+    with open(os.path.join(index_root, "ClassInd.txt"), "w") as fh:
+        fh.write("\n".join(PATH_J_CLASSES) + "\n")
+    built = native.available()
+    print(f"path J: {PATH_J_VIDEOS} videos x {PATH_J_FRAMES} frames "
+          f"{PATH_J_HW[1]}x{PATH_J_HW[0]} q{PATH_J_QUALITY} and the split "
+          f"CSV in {time.perf_counter() - tic:.1f} s; host cpu_count "
+          f"{os.cpu_count()}; native decoder "
+          + ("built (" + native.library_path() + ")" if built else
+             "could not be built here (g++ or libjpeg's header missing): "
+             "the loader decodes with PIL"), flush=True)
+    by_run = {}
+    cfg = path_j_cfg(log_root, index_root, frame_root)
+    _, by_run["path J"] = run_path(
+        torch, "path J", cfg, PATH_J_STEPS,
+        expected_launches(aug_fused=PATH_J_STEPS), TSV4_LOSSES)
+    fast = path_j_cfg(log_root, index_root, frame_root, fast_decode=True)
+    summary = {"native_built": built}
+    if built:
+        _, by_run["path J, --fast_decode 1"] = run_path(
+            torch, "path J, --fast_decode 1", fast, PATH_J_EPOCH_STEPS,
+            expected_launches(aug_fused=PATH_J_EPOCH_STEPS), TSV4_LOSSES)
+        summary["native"] = check_native_batches(cfg)
+    else:
+        trainer = trainer_of(fast)
+        try:
+            trainer.train(fast, max_steps=PATH_J_STEPS, device="cuda")
+        except RuntimeError as err:
+            if "fast_decode" not in str(err):
+                raise
+            print(f"path J, --fast_decode 1: refused without the native "
+                  f"decoder, as it must be: {err}", flush=True)
+        else:
+            fail("path J: --fast_decode 1 trained without the native decoder")
+    summary["decode_ms_per_batch"] = time_decode_routes(cfg)
+    summary["real"] = time_loader_steps(torch, cfg)
+    # half the decode threads: a slower decode against less contention
+    # with the thread that launches the step
+    summary[f"real, {cfg.data.workers // 2} workers"] = time_loader_steps(
+        torch, cfg.replace(data=dataclasses.replace(
+            cfg.data, workers=cfg.data.workers // 2)))
+    synthetic = path_j_cfg(log_root, index_root, frame_root, synthetic=True)
+    summary["synthetic"] = time_loader_steps(torch, synthetic.replace(
+        data=dataclasses.replace(synthetic.data,
+                                 synthetic_videos=PATH_J_VIDEOS)))
+    print("path J: " + json.dumps(summary), flush=True)
+    return by_run
+
+
+# --------------------------------------------------------------------------
+# path F: the unfused per-frame augmentation and the training options
+# --------------------------------------------------------------------------
+
+PATH_F_STEPS = 2
+# the unfused batch on the card against the CPU: float32 sums in another
+# order (the blur's taps, the contrast mean, the HSV round trip), relative
+# to the batch's largest |value|
+UNFUSED_RTOL = 1e-5
+
+
+def path_f_aug_cfgs():
+    """The three unfused configurations of path F: per-frame jitter
+    (``--aug_temp_consist 0``), the gradient ramp (``aug_temp_grad_consist``
+    in the config: neither package's parser has the flag) and ``--fused_aug
+    off`` with clip-consistent jitter."""
+    return (("--aug_temp_consist 0", {"aug_temp_consist": False}),
+            ("aug_temp_grad_consist", {"aug_temp_grad_consist": True}),
+            ("--fused_aug off", {"fused_aug": "off"}))
+
+
+def check_unfused_on_card(torch) -> dict:
+    """The unfused pretrain batch at B=8 (3 x 16 frames, 171x128 -> 112)
+    with the same explicit decisions on the card and on the CPU, in each
+    jitter mode, within ``UNFUSED_RTOL`` of the largest value; in the
+    clip-consistent mode also against the ``aug_fused`` kernel on the same
+    decisions (``F32_ATOL``). Then the unfused batch timed against the
+    kernel's fused batch at B=8 (CUDA events, median of 10)."""
+    import numpy as np
+
+    from dualvar_tpu_torch.aug.pipeline import (AugConfig,
+                                                _draw_clip_params,
+                                                _pretrain_batch_unfused,
+                                                pretrain_batch,
+                                                pretrain_batch_fused)
+
+    frames = torch.from_numpy(np.random.default_rng(40).integers(
+        0, 256, (8, 48, 171, 128, 3), dtype=np.uint8))
+    cuda = frames.to("cuda")
+    out = {}
+    for mode, kw in (("consistent", {}),
+                     ("frame", {"aug_temp_consist": False}),
+                     ("grad", {"aug_temp_grad_consist": True})):
+        cfg = AugConfig(**kw)
+        decisions = _draw_clip_params(torch.Generator().manual_seed(41), cfg,
+                                      8, 3, 171, 128)
+        names = ("crops", "orders", "factors", "blurs")
+        want = _pretrain_batch_unfused(None, frames, cfg,
+                                       **dict(zip(names, decisions)))
+        got = _pretrain_batch_unfused(None, cuda, cfg, **dict(zip(
+            names, (d.to("cuda") for d in decisions))))
+        torch.cuda.synchronize()
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= UNFUSED_RTOL * scale:
+            fail(f"path F: unfused batch ({mode}) card vs CPU {err} > "
+                 f"{UNFUSED_RTOL} x {scale}")
+        out[mode] = {"max_abs_err": err, "scale": scale}
+        if mode == "consistent":
+            fused = pretrain_batch_fused(None, cuda, cfg, **dict(zip(
+                names, (d.to("cuda") for d in decisions))))
+            kerr = float((fused - got).abs().max())
+            if not kerr <= F32_ATOL:
+                fail(f"path F: unfused vs aug_fused on the card {kerr}")
+            out[mode]["vs_aug_fused"] = kerr
+    gen = torch.Generator(device="cuda")
+    for name, cfg in (("aug_fused", AugConfig()),
+                      ("unfused consistent", AugConfig(fused="off")),
+                      ("unfused frame", AugConfig(aug_temp_consist=False))):
+        out[f"{name} ms, B=8"] = time_cuda(
+            torch, lambda: pretrain_batch(gen.manual_seed(0), cuda, cfg), 10)
+    print("path F unfused batch: " + json.dumps(out), flush=True)
+    return out
+
+
+def check_remat_running_stats(torch, log_root: str) -> dict:
+    """One main-path step at B=32 under ``DUALVAR_BN_STATS=pallas`` and
+    deterministic cuDNN algorithms, without, with and again without
+    ``--remat``, from the same init, frames and generator seed. The two
+    runs without remat must agree bitwise (the step is deterministic); the
+    run with remat must then agree with them bitwise in the losses, every
+    running statistic, every gradient (the backward through the recomputed
+    backbone) and every parameter after ``optimizer.step()``, with
+    ``channel_sums`` launched as often (the recomputation reuses the first
+    forward's statistics)."""
+    from dualvar_tpu_torch.ops.bn_stats import channel_sums
+    from dualvar_tpu_torch.train.pretrain import setup_training
+
+    cudnn = torch.backends.cudnn
+    old = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    results = []
+    try:
+        with bn_stats_env(True):
+            for remat in (False, True, False):
+                cfg = smoke_cfg("paper_table1_k400", 32, log_root,
+                                remat=remat)
+                setup = setup_training(cfg, "cuda")
+                with setup.loader as loader:
+                    frames = torch.from_numpy(
+                        next(loader.epoch(0))["frames"]).to("cuda")
+                channel_sums.launches = 0
+                metrics = setup.train_step(frames, setup.generator)
+                torch.cuda.synchronize()
+                grads = {k: p.grad.clone()
+                         for k, p in setup.model.named_parameters()
+                         if p.grad is not None}
+                state = {k: v.clone()
+                         for k, v in setup.model.state_dict().items()}
+                results.append((metrics, grads, state,
+                                channel_sums.launches))
+                del setup
+                torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old
+
+    def differing(a, b):
+        return [k for k in a if not torch.equal(a[k], b[k])]
+
+    (m0, g0, s0, n0), (m1, g1, s1, n1), (m2, g2, s2, n2) = results
+    if not (n0 == n1 == n2 == R21D_SUMS_PER_STEP):
+        fail(f"path F remat: channel_sums {n0}, {n2} without, {n1} with "
+             "remat")
+    if not g0 or sorted(g0) != sorted(g1):
+        fail(f"path F remat: gradients of {len(g0)} and {len(g1)} "
+             "parameters")
+    for what, a, b in (("losses", m0, m2), ("gradients", g0, g2),
+                       ("state", s0, s2)):
+        if differing(a, b):
+            fail(f"path F remat: two runs without remat differ in {what}: "
+                 f"{differing(a, b)[:4]}")
+    for what, a, b in (("losses", m0, m1), ("gradients", g0, g1),
+                       ("state after the step", s0, s1)):
+        if differing(a, b):
+            fail(f"path F remat: remat changes the {what}: "
+                 f"{differing(a, b)[:4]}")
+    out = {"losses_bitwise": len(m0), "gradients_bitwise": len(g0),
+           "running_statistics_bitwise": sum("running_" in k for k in s0),
+           "state_after_step_bitwise": len(s0), "channel_sums": n0,
+           "cudnn_deterministic": True}
+    print("path F remat, one B=32 step, DUALVAR_BN_STATS=pallas: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def run_path_f(torch, log_root: str) -> dict:
+    """Path F: ``paper_table1_k400`` at B=8 on the unfused path three ways
+    (``aug_fused`` 0 launches), the unfused batch card against CPU and
+    timed against the kernel, two ``--optim adam`` steps, two classifier
+    steps with ``--optim adam --remat``, the main path at B=32 with and
+    without ``--remat`` (peak memory, step ms) and one step with and
+    without it bitwise (``check_remat_running_stats``)."""
+    from dualvar_tpu_torch.core.checkpoint import checkpoint_file
+
+    by_run = {}
+    for flag, kw in path_f_aug_cfgs():
+        cfg = smoke_cfg("paper_table1_k400", 8, log_root)
+        cfg = cfg.replace(
+            aug=dataclasses.replace(cfg.aug, **kw),
+            run=dataclasses.replace(cfg.run, name_prefix=(
+                "chip_smoke_path_f_" + flag.strip("-").replace(" ", "_"))))
+        label = f"path F, {flag}"
+        _, by_run[label] = run_path(torch, label, cfg, PATH_F_STEPS,
+                                    expected_launches(), TSV4_LOSSES)
+    summary = {"unfused": check_unfused_on_card(torch)}
+    adam = smoke_cfg("paper_table1_k400", 8, log_root)
+    adam = adam.replace(
+        optim=dataclasses.replace(adam.optim, optim="adam"),
+        run=dataclasses.replace(adam.run,
+                                name_prefix="chip_smoke_path_f_adam"))
+    clf = path_c_cfg(log_root)
+    clf = dataclasses.replace(
+        clf, optim=dataclasses.replace(clf.optim, optim="adam"),
+        model=dataclasses.replace(clf.model, remat=True),
+        run=dataclasses.replace(clf.run,
+                                name_prefix="chip_smoke_path_f_adam_remat"))
+    for label, cfg, keys in (("path F, --optim adam", adam, TSV4_LOSSES),
+                             ("path F, classifier --optim adam --remat", clf,
+                              CLASSIFIER_METRICS)):
+        _, by_run[label] = run_path(
+            torch, label, cfg, PATH_F_STEPS,
+            expected_launches(aug_fused=PATH_F_STEPS), keys)
+        ckpt = torch.load(checkpoint_file(os.path.join(
+            trainer_of(cfg).set_path(cfg), "model")), map_location="cpu")
+        states = ckpt["optimizer"]["state"].values()
+        if not states or not all("exp_avg_sq" in s for s in states):
+            fail(f"{label}: the checkpoint holds no Adam state")
+    summary["remat"] = check_remat_running_stats(torch, log_root)
+    for remat in (False, True):
+        record = time_train_steps(torch, smoke_cfg(
+            "paper_table1_k400", 32, log_root, remat=remat))
+        summary[f"B=32 remat={remat}"] = {
+            k: record[k] for k in ("ms_per_step",
+                                   "max_memory_allocated_bytes")}
+    print("path F: " + json.dumps(summary), flush=True)
+    return by_run, summary
+
+
 def main() -> int:
     start = time.perf_counter()
     import torch
@@ -2720,10 +3241,22 @@ def main() -> int:
         load_library(name)
         return time.perf_counter() - start
 
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source
+    def build_native():
+        # the host JPEG decoder (g++ and libjpeg); False where either is
+        # missing, and path J then decodes with PIL
+        from dualvar_tpu_torch import native
+
+        start = time.perf_counter()
+        return native.available(), time.perf_counter() - start
+
+    with ThreadPoolExecutor(len(names) + 1) as pool:  # one compiler a source
+        decoder = pool.submit(build_native)
         took = dict(zip(names, pool.map(build, names)))
-    print(f"build: {', '.join(names)} in {time.perf_counter() - tic:.1f} s "
-          "side by side; each: " + json.dumps(took), flush=True)
+        native_built, took["native decoder (g++)"] = decoder.result()
+    print(f"build: {', '.join(names)} and the native decoder in "
+          f"{time.perf_counter() - tic:.1f} s side by side; each: "
+          + json.dumps(took) + f"; native decoder built: {native_built}",
+          flush=True)
     for name in names:
         with open(ptxas_log_path(name)) as fh:
             print(f"build: ptxas {name}: " + " | ".join(
@@ -2764,6 +3297,9 @@ def main() -> int:
         by_path.update(run_path_d(torch, log_root, r_state))
         by_path.update(run_path_v(torch, log_root, state, g_state))
         by_path["path E"] = run_path_e(torch, log_root, path_c_cfg(log_root))
+        by_path.update(run_path_j(torch, log_root))
+        path_f, path_f_summary = run_path_f(torch, log_root)
+        by_path.update(path_f)
         check_features_on_card(torch, log_root, state, moco_state)
         for kernel in kernels:
             # each kernel's count on the main path of the slice that ported
@@ -2785,6 +3321,8 @@ def main() -> int:
             torch, path_g_cfg(8, log_root), g_state)
         aug = next(k for k in kernels if k["name"] == "aug_fused")
         aug["path_c"] = check_aug_classifier_shapes(torch, device)
+        # the unfused path beside the kernel (path F): no launch of it
+        aug["path_f_unfused"] = path_f_summary["unfused"]
         conv = next(k for k in kernels if k["name"] == "conv3d_bn_stats_bf16")
         conv["path_r_layer1"] = check_conv_on_path_r(
             torch, path_r_cfg(8, log_root), r_state)

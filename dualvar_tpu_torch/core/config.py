@@ -3,19 +3,18 @@ groups, with the paper scripts' hyperparameters as named presets.
 
 Own copy of ``dualvar_tpu/core/config.py`` (the port imports nothing of the
 JAX package). The fields the port has carry the JAX package's names and
-defaults, so a preset means the same experiment in both packages. Not here
-yet, because what they switch is not ported (ROADMAP.md, queue A):
+defaults, so a preset means the same experiment in both packages.
 
-* ``DataConfig.fast_decode`` (the native JPEG decoder);
-* ``ModelConfig.remat`` (activation rematerialisation).
-
-Two fields read differently here:
+Three fields read differently here:
 
 * ``ModelConfig.dtype`` is the autocast type of the model's forward pass on
   the card (parameters, BN statistics, heads and losses stay float32);
 * ``AugFlags.fused_aug='auto'`` means the hand-written CUDA kernel
   (``ops/aug_fused.py``) whenever the batch lies on a CUDA device, in both
-  trainers; ``'off'`` (the JAX package's unfused path) is refused there.
+  trainers; ``'off'`` is the unfused per-frame path (``aug/pipeline.py``)
+  on any device;
+* ``DataConfig.fast_decode`` raises where the native decoder is not
+  available, where the JAX package decodes exactly instead.
 """
 
 from __future__ import annotations
@@ -40,6 +39,9 @@ class DataConfig:
     val_size: int = 800
     workers: int = 8
     synthetic: bool = False  # no-filesystem deterministic data
+    # native decoder DCT-domain scaled decode: ~1/4 the IDCT work on frames
+    # larger than scale_hw; pixels close to (not bitwise) the exact decode
+    fast_decode: bool = False
     synthetic_videos: int = 64
     synthetic_classes: int = 8
     # host resize target (H, W) — Scale((128,171)) semantics: width 128,
@@ -88,6 +90,10 @@ class ModelConfig:
     # across the four groups, exactly as in the JAX package under the same
     # flag — a documented divergence from the reference's separate passes.
     packed_encode: bool = False
+    # recompute the backbone's activations in the backward pass
+    # (torch.utils.checkpoint): the same numbers, about 1/3 more FLOPs, far
+    # less activation memory
+    remat: bool = False
 
 
 @dataclass(frozen=True)

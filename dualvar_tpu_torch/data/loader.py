@@ -1,15 +1,18 @@
 """Host-side input pipeline: frame sources, the pretrain and classifier
 datasets and a seeded, thread-pooled batch loader.
 
-Own copy of the parts of ``dualvar_tpu/data/loader.py`` that the pretrain
-step and the classifier need. The host only produces uint8 frames; crops,
-jitter, blur and normalisation run on the device (``dualvar_tpu_torch.aug``),
-so batches cross to the card as uint8. With the same seed this loader yields the same
-uint8 batch as the JAX package's (tests/test_torch_port_slice.py).
+Own copy of ``dualvar_tpu/data/loader.py``. The host only produces uint8
+frames; crops, jitter, blur and normalisation run on the device
+(``dualvar_tpu_torch.aug``), so batches cross to the card as uint8. With the
+same seed this loader yields the same uint8 batch as the JAX package's
+(tests/test_torch_port_slice.py, tests/test_torch_port_real_data.py).
 
-Left out for now: the native C++ JPEG decoder branch of ``JpegFrameSource``
-and the whole-batch native assembler that rides on it (see ROADMAP.md);
-``JpegFrameSource`` here decodes with PIL only.
+``JpegFrameSource`` decodes fixed-size resizes with the native C++ decoder
+(``dualvar_tpu_torch.native``) where it builds, else with PIL. On the native
+route ``HostLoader`` assembles a whole batch with one native call
+(``_assemble``) from the datasets' ``plan()``, bitwise equal to the
+per-sample path, and hints the page cache one prefetch window ahead
+(``_readahead``).
 """
 
 from __future__ import annotations
@@ -28,20 +31,68 @@ from .indices import ClassIndex, VideoEntry, shard_for_process
 
 class JpegFrameSource:
     """Reads ``{db_path}/{vname}/image_{i+1:05d}.jpg`` (reference
-    local_dataset.py:149-150) and resizes with PIL bicubic (the reference
-    Scale default, augmentation.py:126)."""
+    local_dataset.py:149-150) and resizes with bicubic antialiasing (the
+    reference Scale default, augmentation.py:126).
 
-    def __init__(self, db_path: str, scale: tuple[int, int] | int = (171, 128)):
+    Fixed-size resizes go through the native decoder (``..native``: libjpeg,
+    a PIL-equivalent resampler and a thread pool) when it is available and
+    ``use_native``; PIL is the fallback and handles int short-side resizes.
+    The two routes agree to a few levels a pixel, not bitwise.
+
+    ``fast_decode``: the native decoder's DCT-domain scaled decode (libjpeg
+    k/8 scaling), which skips most of the IDCT work when the frames are
+    larger than ``scale``; its pixels are close to, not bitwise equal with,
+    the exact decode. Only the native decoder has it: unlike the JAX
+    package, which then quietly decodes exactly with PIL, this source
+    raises where ``fast_decode`` is asked for and the native route cannot
+    be taken (no library, ``use_native=False`` or an int ``scale``).
+    """
+
+    def __init__(self, db_path: str, scale: tuple[int, int] | int = (171, 128),
+                 use_native: bool = True, native_threads: int = 4,
+                 fast_decode: bool = False):
         # scale: (H, W) fixed resize, or int short-side resize
         self.db_path = db_path
         self.scale = scale
+        self.native_threads = native_threads
+        self.fast_decode = fast_decode
+        self._native = None
+        if use_native and not isinstance(scale, int):
+            from .. import native
+
+            if native.available():
+                self._native = native
+        if fast_decode and self._native is None:
+            raise RuntimeError(
+                "fast_decode needs the native JPEG decoder (g++ and libjpeg, "
+                "a fixed (H, W) scale, use_native=True); it is not available "
+                "here, and decoding exactly instead would not be what was "
+                "asked for")
+
+    def paths(self, vname: str, frame_indices: np.ndarray) -> list[str]:
+        return [
+            os.path.join(self.db_path, vname, f"image_{int(i) + 1:05d}.jpg")
+            for i in frame_indices
+        ]
+
+    @property
+    def native_batch(self):
+        """(native_module, (H, W)) when the batch assembler can decode for
+        this source, else None."""
+        if self._native is None:
+            return None
+        return self._native, tuple(self.scale)
 
     def __call__(self, vname: str, frame_indices: np.ndarray) -> np.ndarray:
+        paths = self.paths(vname, frame_indices)
+        if self._native is not None:
+            return self._native.decode_jpeg_files(
+                paths, self.scale, n_threads=self.native_threads,
+                fast=self.fast_decode)
         from PIL import Image  # host-only dependency
 
         frames = []
-        for i in frame_indices:
-            path = os.path.join(self.db_path, vname, f"image_{int(i) + 1:05d}.jpg")
+        for path in paths:
             with Image.open(path) as im:
                 im = im.convert("RGB")
                 if isinstance(self.scale, int):
@@ -151,13 +202,19 @@ class PretrainDataset:
         out = np.concatenate([idx1, idx2])
         return np.concatenate([out, idx1]) if self.aug_series else out
 
-    def __call__(self, index: int, rng: np.random.Generator) -> dict[str, Any]:
+    def plan(self, index: int, rng: np.random.Generator):
+        """(vname, frame_indices, aux) with the decode deferred: the
+        loader's batch assembler decodes a whole batch's plans in one native
+        call."""
         e = self.entries[index]
         idx = self._indices(rng, e.vlen)
-        return {
-            "frames": self.source(e.vname, idx),
+        return e.vname, idx, {
             "label": np.int32(self.class_index.encode(e.vlabel)),
         }
+
+    def __call__(self, index: int, rng: np.random.Generator) -> dict[str, Any]:
+        vname, idx, aux = self.plan(index, rng)
+        return {"frames": self.source(vname, idx), **aux}
 
 
 @dataclass
@@ -193,7 +250,8 @@ class ClassifierDataset:
         return len(self._records) if self._records is not None \
             else len(self.entries)
 
-    def __call__(self, index: int, rng: np.random.Generator) -> dict[str, Any]:
+    def plan(self, index: int, rng: np.random.Generator):
+        """(vname, frame_indices, aux), as ``PretrainDataset.plan``."""
         if self._records is not None:
             ei, w = self._records[index]
             e = self.entries[ei]
@@ -203,12 +261,15 @@ class ClassifierDataset:
             e = self.entries[ei]
             idx = samplers.frame_sampler_train(rng, e.vlen, self.num_frames,
                                                self.ds)
-        return {
-            "frames": self.source(e.vname, idx),
+        return e.vname, idx, {
             "label": np.int32(self.class_index.encode(e.vlabel)),
             "vid": np.int32(ei),
             "rid": np.int32(index),
         }
+
+    def __call__(self, index: int, rng: np.random.Generator) -> dict[str, Any]:
+        vname, idx, aux = self.plan(index, rng)
+        return {"frames": self.source(vname, idx), **aux}
 
     def record_vids(self) -> np.ndarray:
         """vid per record id (test mode: records are (video, window) pairs;
@@ -232,14 +293,18 @@ class TenClipDataset:
     def __len__(self):
         return len(self.entries)
 
-    def __call__(self, index: int, rng: np.random.Generator) -> dict[str, Any]:
+    def plan(self, index: int, rng: np.random.Generator):
+        """(vname, frame_indices, aux), as ``PretrainDataset.plan``."""
         e = self.entries[index]
         idx = samplers.tenclip_sampler(e.vlen, self.num_frames, self.ds)
-        return {
-            "frames": self.source(e.vname, idx),
+        return e.vname, idx, {
             "label": np.int32(self.class_index.encode(e.vlabel)),
             "vid": np.int32(index),
         }
+
+    def __call__(self, index: int, rng: np.random.Generator) -> dict[str, Any]:
+        vname, idx, aux = self.plan(index, rng)
+        return {"frames": self.source(vname, idx), **aux}
 
 
 class HostLoader:
@@ -271,6 +336,7 @@ class HostLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.prefetch = prefetch
+        self.num_workers = num_workers
         self.pool = ThreadPoolExecutor(max_workers=num_workers)
 
     def close(self):
@@ -288,13 +354,73 @@ class HostLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _rng(self, epoch: int, index: int) -> np.random.Generator:
-        """The per-sample rng stream: one stream per (seed, epoch, index)."""
+        """The per-sample rng stream, one per (seed, epoch, index): its only
+        definition, on which the batch assembler's bitwise equality with
+        the per-sample path rests."""
         return np.random.default_rng(
             np.random.SeedSequence([self.seed, epoch, int(index)])
         )
 
     def _sample(self, epoch: int, index: int) -> dict[str, np.ndarray]:
         return self.dataset(int(index), self._rng(epoch, index))
+
+    def _native_batch_ctx(self):
+        """(native_module, (H, W)) when the whole-batch native assembler
+        applies: the dataset has ``plan()`` and its source is a fixed-size
+        ``JpegFrameSource`` on the native route; else None."""
+        src = getattr(self.dataset, "source", None)
+        if (hasattr(self.dataset, "plan")
+                and getattr(src, "native_batch", None) is not None):
+            return src.native_batch
+        return None
+
+    def _readahead(self, epoch: int, indices) -> None:
+        """Page-cache hint (``posix_fadvise`` WILLNEED) for a batch that
+        will be decoded one prefetch window from now: the plans are drawn
+        again (cheap index arithmetic, deterministic per (epoch, index)) and
+        their files handed to the kernel, which queues the reads and returns
+        at once. A no-op off the native route."""
+        ctx = self._native_batch_ctx()
+        if ctx is None:
+            return
+        native_mod, _ = ctx
+        src = self.dataset.source
+        paths = [
+            p
+            for i in indices
+            for vname, idx, _ in (self.dataset.plan(int(i),
+                                                    self._rng(epoch, int(i))),)
+            for p in src.paths(vname, idx)
+        ]
+        native_mod.readahead_files(paths)
+
+    def _assemble(self, epoch: int, indices) -> dict[str, np.ndarray]:
+        """The batch assembler: every sample's plan, then all B*F frames
+        decoded straight into the batch buffer by one native call (its
+        thread pool balances over the frames; no per-sample stack). Bitwise
+        equal to the per-sample path: the same per-index rng stream and the
+        same decoder."""
+        native_mod, (H, W) = self._native_batch_ctx()
+        src = self.dataset.source
+        plans = [self.dataset.plan(int(i), self._rng(epoch, int(i)))
+                 for i in indices]
+        F = len(plans[0][1])
+        assert all(len(idx) == F for _, idx, _ in plans), \
+            [len(idx) for _, idx, _ in plans]
+        out = np.empty((len(plans), F, H, W, 3), np.uint8)
+        paths = [p for vname, idx, _ in plans for p in src.paths(vname, idx)]
+        # up to `prefetch` assemblies run at once, each with its own native
+        # threads: split the workers between them
+        ok = native_mod.decode_jpeg_files_into(
+            paths, out.reshape(len(plans) * F, H, W, 3),
+            n_threads=max(1, self.num_workers // max(1, min(
+                self.prefetch, 2))),
+            fast=src.fast_decode)
+        assert ok
+        batch = {"frames": out}
+        for k in plans[0][2]:
+            batch[k] = np.stack([aux[k] for _, _, aux in plans])
+        return batch
 
     def epoch(self, epoch: int = 0) -> Iterator[dict[str, np.ndarray]]:
         order = shard_for_process(
@@ -311,8 +437,15 @@ class HostLoader:
         ]
         pending = []
         bi = 0
+        use_native_batch = self._native_batch_ctx() is not None
 
         def submit(b):
+            if use_native_batch and b + self.prefetch < nb:
+                # prime the page cache one prefetch window out
+                self.pool.submit(self._readahead, epoch,
+                                 batches[b + self.prefetch])
+            if use_native_batch:
+                return self.pool.submit(self._assemble, epoch, batches[b])
             return [self.pool.submit(self._sample, epoch, i) for i in batches[b]]
 
         while bi < min(self.prefetch, nb):
@@ -323,6 +456,9 @@ class HostLoader:
             if bi < nb:
                 pending.append(submit(bi))
                 bi += 1
+            if use_native_batch:
+                yield futs.result()
+                continue
             samples = [f.result() for f in futs]
             yield {
                 k: np.stack([s[k] for s in samples]) for k in samples[0]

@@ -17,9 +17,19 @@ Under a process group (``core/dist.py``) every train-mode batch norm
 normalises with the global batch's statistics, as the JAX package's
 sharded step does: the one-pass route all-reduces its sums, the default
 route takes ``torch.nn.SyncBatchNorm``'s arithmetic (``_SyncBN``).
+
+Under activation rematerialisation (``select_backbone(..., remat=True)``)
+the backward recomputes the backbone's forward in train mode. JAX's remat
+throws the recomputed batch statistics away; here the recomputation reuses
+the batch statistics of the step's first forward (``remat_contexts``), so the
+running statistics are folded, the statistics' sums launched and their
+collectives issued once a step, as without remat.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
@@ -71,21 +81,28 @@ class _OnePassBN(torch.autograd.Function):
     so each rank normalises with the global batch's statistics and takes
     the global batch's dx (every rank's ``x`` has the same shape). dscale
     and dbias stay this rank's share: the gradient average over the ranks
-    adds them up."""
+    adds them up.
+
+    ``stats``: (mu, var) of an earlier forward of the same ``x`` (the
+    recomputation under remat), used in place of the sums."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, synced=False):
+    def forward(ctx, x, weight, bias, eps, synced=False, stats=None):
         acc = torch.float64 if x.dtype == torch.float64 else torch.float32
         n = x.numel() // x.shape[1]
-        s1, s2 = _sums(x, x)
         if synced:
             # every rank's batch has this shape (the loaders drop a short
             # last batch): the global count stays a host number, as the
             # local one is, and mu rounds as without a group
-            s1, s2 = _global_sums(s1, s2)
             n *= dist.world_size()
-        mu = s1 / n
-        var = (s2 / n - mu * mu).clamp_min(0.0)
+        if stats is None:
+            s1, s2 = _sums(x, x)
+            if synced:
+                s1, s2 = _global_sums(s1, s2)
+            mu = s1 / n
+            var = (s2 / n - mu * mu).clamp_min(0.0)
+        else:
+            mu, var = stats
         inv = torch.rsqrt(var + eps)
         sc = weight.to(acc) * inv
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -114,7 +131,7 @@ class _OnePassBN(torch.autograd.Function):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         dx = (g * A.to(g.dtype).view(shape) + x * C.to(x.dtype).view(shape)
               + B.to(x.dtype).view(shape))
-        return dx, dscale, dbias, None, None
+        return dx, dscale, dbias, None, None, None
 
 
 def _plain_stats(x: torch.Tensor, eps: float):
@@ -137,14 +154,16 @@ class _SyncBN(torch.autograd.Function):
     ``batch_norm_backward_elemt``. These ATen functions run on the card
     only; CPU tensors take the same arithmetic in plain torch.
 
-    Returns (y, mean, biased var); like ``_OnePassBN``, mean and var feed
-    the running statistics only. dweight and dbias stay this rank's share,
-    as SyncBatchNorm's do."""
+    Returns (y, mean, biased var, invstd, counts); like ``_OnePassBN``, the
+    statistics feed the running statistics (and a recomputation) only.
+    dweight and dbias stay this rank's share, as SyncBatchNorm's do.
+
+    ``stats``: (mean, invstd, counts) of an earlier forward of the same
+    ``x`` (the recomputation under remat), used in place of the gather."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def _global_stats(x, eps):
         C = x.shape[1]
-        x = x.contiguous(memory_format=_memory_format(x))
         if x.is_cuda:
             mean, invstd = torch.batch_norm_stats(x, eps)
         else:
@@ -162,7 +181,6 @@ class _SyncBN(torch.autograd.Function):
             mean, invstd = torch.batch_norm_gather_stats_with_counts(
                 x, mean_all, invstd_all, scratch[0], scratch[1], 0.0, eps,
                 counts)
-            y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
         else:
             n = counts.sum()
             mean = (counts[:, None] * mean_all).sum(0) / n
@@ -170,6 +188,16 @@ class _SyncBN(torch.autograd.Function):
             var = (counts[:, None] * (var_all + (mean_all - mean).square())
                    ).sum(0) / n
             invstd = torch.rsqrt(var + eps)
+        return mean, invstd, counts
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, stats=None):
+        x = x.contiguous(memory_format=_memory_format(x))
+        mean, invstd, counts = (_SyncBN._global_stats(x, eps)
+                                if stats is None else stats)
+        if x.is_cuda:
+            y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+        else:
             shape = (1, -1) + (1,) * (x.dim() - 2)
             scale = (invstd * weight.to(invstd.dtype)).view(shape)
             y = ((x - mean.view(shape)) * scale
@@ -177,12 +205,12 @@ class _SyncBN(torch.autograd.Function):
         ctx.save_for_backward(x, weight, mean, invstd,
                               counts.to(torch.int32))
         var = invstd.pow(-2) - eps
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        ctx.mark_non_differentiable(mean, var, invstd, counts)
+        return y, mean, var, invstd, counts
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, g, _gmean, _gvar):
+    def backward(ctx, g, _gmean, _gvar, _ginvstd, _gcounts):
         x, weight, mean, invstd, counts = ctx.saved_tensors
         g = g.contiguous(memory_format=_memory_format(x))
         if x.is_cuda:
@@ -209,7 +237,41 @@ class _SyncBN(torch.autograd.Function):
             dx = ((g.to(acc) - (sum_dy / n).view(shape)
                    - xmu * (invstd * invstd * sum_dy_xmu / n).view(shape))
                   * (invstd * weight.to(acc)).view(shape)).to(x.dtype)
-        return dx, dweight, dbias, None
+        return dx, dweight, dbias, None, None
+
+
+class _RematStats:
+    """The batch statistics the batch norms of one checkpointed forward
+    computed, in call order, for its recomputation to reuse."""
+
+    def __init__(self):
+        self.saved: list = []
+        self.next = 0
+
+
+# (stats, replaying) of the checkpointed region being run, if any: a thread
+# local, because the recomputation runs on the autograd engine's thread
+_REMAT = threading.local()
+
+
+@contextlib.contextmanager
+def _remat_region(stats: _RematStats, replaying: bool):
+    outer = getattr(_REMAT, "region", None)
+    _REMAT.region = (stats, replaying)
+    stats.next = 0
+    try:
+        yield
+    finally:
+        _REMAT.region = outer
+
+
+def remat_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: one record a checkpointed
+    call, shared by its first forward (each train-mode ``BatchNorm`` appends
+    its statistics) and its recomputation (each takes them back, in the same
+    order, and neither recomputes nor folds them)."""
+    stats = _RematStats()
+    return _remat_region(stats, False), _remat_region(stats, True)
 
 
 class BatchNorm(nn.Module):
@@ -231,6 +293,9 @@ class BatchNorm(nn.Module):
     norm; without a group neither issues a collective. The fold is the
     same on every path.
 
+    Inside a rematerialised backbone the recomputation takes the first
+    forward's statistics and folds nothing (``remat_contexts``).
+
     State-dict keys: ``weight``, ``bias``, ``running_mean``, ``running_var``.
     """
 
@@ -249,22 +314,38 @@ class BatchNorm(nn.Module):
             return torch.nn.functional.batch_norm(
                 x, self.running_mean, self.running_var, self.weight,
                 self.bias, False, 0.0, self.eps)
+        region = getattr(_REMAT, "region", None)
+        saved = None
+        if region is not None and region[1]:  # the recomputation
+            record = region[0]
+            saved = record.saved[record.next]
+            record.next += 1
         stat = self.running_var.dtype
         synced = dist.active()
         if use_kernel_stats():
             y, mean, var = _OnePassBN.apply(x, self.weight, self.bias,
-                                            self.eps, synced)
+                                            self.eps, synced, saved)
+            keep = (mean, var)
             var = var.to(stat)
         elif synced:
-            y, mean, var = _SyncBN.apply(x, self.weight, self.bias, self.eps)
+            y, mean, var, invstd, counts = _SyncBN.apply(
+                x, self.weight, self.bias, self.eps, saved)
+            keep = (mean, invstd, counts)
             var = var.to(stat)
         else:
             # no running buffers: the fold below is done by hand from the
-            # returned batch mean and inverse std (= rsqrt(biased var + eps))
+            # returned batch mean and inverse std (= rsqrt(biased var + eps));
+            # a recomputation recomputes them, with no sum kernel or
+            # collective to repeat
             y, mean, invstd = torch.native_batch_norm(
                 x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            keep = None
             with torch.no_grad():
                 var = invstd.to(stat).pow(-2) - self.eps
+        if region is not None:
+            if region[1]:
+                return y  # folded once, by the first forward
+            region[0].saved.append(keep)
         with torch.no_grad():
             # in place: the buffers are module state, not part of the graph
             self.running_mean.lerp_(mean.to(stat), self.momentum)

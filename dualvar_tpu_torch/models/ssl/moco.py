@@ -31,6 +31,12 @@ Random decisions have explicit seams for the tests: ``perm`` (segment
 shuffle) and ``bn_perm`` (the batch permutation of the BN-shuffle mode);
 without them they are drawn from the ``generator`` handed in.
 
+``nonlinear=False`` drops the clip heads: the clip embedding is the
+l2-normalised pooled feature, and the clip queue is as wide as the
+backbone's feature. ``remat=True`` recomputes the query encoder's backbone
+activations in the backward pass (the key encoder runs without gradients,
+so its forward is plain).
+
 Precision: the backbones run under the caller's autocast; the pooled
 features are cast to float32 and the heads and every loss run with autocast
 off, so the soft-DTW cost matrices are float32.
@@ -60,13 +66,18 @@ class MoCoEncoder(nn.Module):
 
     def __init__(self, network: str = "r21d", dim: int = 128,
                  n_series: int = 2, series_dim: int = 64,
-                 with_series: bool = True):
+                 with_series: bool = True, nonlinear: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.n_series = n_series
         self.series_dim = series_dim
-        self.backbone, param = select_backbone(network)
+        self.nonlinear = nonlinear
+        self.backbone, param = select_backbone(network, remat=remat)
         feat = param["feature_size"]
-        self.clip_head = MLPHead(feat, dim)
+        # the clip embedding's width: the head's, or the pooled feature's
+        self.clip_dim = dim if nonlinear else feat
+        if nonlinear:
+            self.clip_head = MLPHead(feat, dim)
         if with_series:
             self.series_head = MLPHead(feat, series_dim * n_series)
 
@@ -84,7 +95,8 @@ class MoCoEncoder(nn.Module):
         None for an encoder without a series head)."""
         p = self.pooled(x)
         with torch.autocast(device_type=x.device.type, enabled=False):
-            clip_emb = l2_normalize(self.clip_head(p), axis=1)
+            clip_emb = l2_normalize(
+                self.clip_head(p) if self.nonlinear else p, axis=1)
             series = self._series(p) if hasattr(self, "series_head") else None
         return clip_emb, series
 
@@ -172,6 +184,7 @@ class MoCo(nn.Module):
                  aligned_T: float = 0.07, mode: str = "clip-sr-tc",
                  dtw_gamma: float = 0.1, naked: bool = False,
                  shuffle_bn_groups: int = 0, packed_encode: bool = False,
+                 nonlinear: bool = True, remat: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.m = m
@@ -183,13 +196,14 @@ class MoCo(nn.Module):
         self.shuffle_bn_groups = shuffle_bn_groups
         self.packed_encode = packed_encode
         self.encoder_q = MoCoEncoder(network, dim, n_series, series_dim,
-                                     with_series=not naked)
+                                     with_series=not naked,
+                                     nonlinear=nonlinear, remat=remat)
         # the key encoder starts as a copy of the query encoder (reference
         # moco.py:310-315) and is never seen by the optimizer
         self.encoder_k = copy.deepcopy(self.encoder_q).requires_grad_(False)
         # queues start as normalised gaussian noise (reference moco.py:317-323)
-        self.register_buffer("queue", l2_normalize(
-            torch.randn(K, dim, generator=generator), axis=1))
+        self.register_buffer("queue", l2_normalize(torch.randn(
+            K, self.encoder_q.clip_dim, generator=generator), axis=1))
         if not naked:
             noise = torch.randn(K, n_series, series_dim, generator=generator)
             self.register_buffer("series_queue", l2_normalize(

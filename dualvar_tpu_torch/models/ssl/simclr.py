@@ -16,6 +16,11 @@ The per-sample segment permutation for shuffle-rank is drawn from an explicit
 ``torch.Generator`` unless ``perm`` (B, n_series) is given (tests pass one so
 both packages make the same decision).
 
+``nonlinear=False`` drops the clip head: the clip embedding is the
+l2-normalised pooled feature (reference model/simclr.py:167-170).
+``remat=True`` recomputes the backbone's activations in the backward pass
+(``select_backbone``); ``get_features`` then refuses, as in the JAX package.
+
 Precision: the backbone runs under whatever autocast the caller set; the
 pooled features are cast to float32 and the heads and losses run with
 autocast off, as the JAX package keeps them in float32.
@@ -82,7 +87,12 @@ def stage_attention_maps(backbone: nn.Module,
     model/simclr.py:123-127 get_features): ``x`` (B, T, H, W, C) clips
     through a backbone with a ``multi_level`` forward (R(2+1)D) in eval mode
     with no gradient -> one float32 (B, T', H', W') map a stage. The
-    backbone's train/eval mode is restored."""
+    backbone's train/eval mode is restored. A rematerialised backbone is
+    refused, as the JAX package refuses it."""
+    if getattr(backbone, "remat", False):
+        raise ValueError(
+            "get_features needs the backbone's multi_level forward; build the "
+            "model with remat=False for visualization")
     was_training = backbone.training
     backbone.eval()
     try:
@@ -97,11 +107,14 @@ class SimCLRNaked(nn.Module):
     """Reference model/simclr.py:19-121 (SimCLR_Naked)."""
 
     def __init__(self, network: str = "r21d", dim: int = 128,
-                 temperature: float = 0.07):
+                 temperature: float = 0.07, nonlinear: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.temperature = temperature
-        self.backbone, param = select_backbone(network)
-        self.clip_head = MLPHead(param["feature_size"], dim)
+        self.nonlinear = nonlinear
+        self.backbone, param = select_backbone(network, remat=remat)
+        if nonlinear:
+            self.clip_head = MLPHead(param["feature_size"], dim)
 
     def forward(self, block: torch.Tensor) -> dict[str, torch.Tensor]:
         B, n_views = block.shape[:2]
@@ -110,7 +123,8 @@ class SimCLRNaked(nn.Module):
         pooled = global_avg_pool3d(self.backbone(
             planar.reshape(B * 2, *planar.shape[2:]))).float()
         with torch.autocast(device_type=block.device.type, enabled=False):
-            emb = l2_normalize(self.clip_head(pooled), axis=1)
+            emb = l2_normalize(
+                self.clip_head(pooled) if self.nonlinear else pooled, axis=1)
             return nt_xent_loss(emb.reshape(B, 2, -1), self.temperature,
                                 "clip_")
 
@@ -127,9 +141,11 @@ class SimCLRTimeSeriesV4(nn.Module):
                  temperature: float = 0.07, n_series: int = 2,
                  series_dim: int = 64, aligned_T: float = 0.07,
                  mode: str = "clip-sr-tc", shufflerank_theta: float = 0.05,
-                 dtw_gamma: float = 0.1, packed_encode: bool = False):
+                 dtw_gamma: float = 0.1, packed_encode: bool = False,
+                 nonlinear: bool = True, remat: bool = False):
         super().__init__()
         self.temperature = temperature
+        self.nonlinear = nonlinear
         self.n_series = n_series
         self.series_dim = series_dim
         self.aligned_T = aligned_T
@@ -146,9 +162,9 @@ class SimCLRTimeSeriesV4(nn.Module):
         self.with_tc = "tc" in mode or "dtw" in mode
         self.tc_align = "dtw" if "dtw" in mode else "mean"
 
-        self.backbone, param = select_backbone(network)
+        self.backbone, param = select_backbone(network, remat=remat)
         feat = param["feature_size"]
-        if self.with_clip:
+        if self.with_clip and nonlinear:
             self.clip_head = MLPHead(feat, dim)
         self.series_head = MLPHead(feat, series_dim * n_series)
 
@@ -189,7 +205,8 @@ class SimCLRTimeSeriesV4(nn.Module):
     def _losses(self, B, pooled, sh_pooled, perm):
         ret: dict[str, torch.Tensor] = {}
         if self.with_clip:
-            clip_emb = l2_normalize(self.clip_head(pooled), axis=1)
+            clip_emb = l2_normalize(
+                self.clip_head(pooled) if self.nonlinear else pooled, axis=1)
             clip_emb = clip_emb.reshape(B, 3, -1)[:, :2]
             ret.update(nt_xent_loss(clip_emb, self.temperature, "clip_"))
 

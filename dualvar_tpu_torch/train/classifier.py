@@ -48,10 +48,9 @@ Process 0 writes the metrics through ``core/metrics_writer.py`` under
 ``{exp}/img/train``: ``local/<metric>`` at each logged step, ``val/top1`` at
 each validation. ``--fused_aug`` (``auto``, ``on``, ``off``) chooses the
 train batch's augmentation as pretrain's flag does
-(``aug/pipeline.py:_use_fused``): ``off`` is refused for CUDA frames.
-
-Not ported (ROADMAP.md A.13): ``--remat``, ``--fast_decode 1`` and
-``--optim adam`` raise.
+(``aug/pipeline.py:_use_fused``): ``off`` takes the unfused per-frame
+path on any device. ``--optim adam``, ``--remat`` and ``--fast_decode 1``
+work as in the pretrain trainer.
 """
 
 from __future__ import annotations
@@ -92,7 +91,8 @@ def build_model(cfg: ClassifierConfig, seed: int = 0) -> LinearClassifier:
     left untouched)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        backbone, param = select_backbone(cfg.model.net)
+        backbone, param = select_backbone(cfg.model.net,
+                                          remat=cfg.model.remat)
         return LinearClassifier(
             backbone, param["feature_size"], num_class=cfg.num_class,
             dropout_rate=cfg.dropout, use_dropout=cfg.use_dropout,
@@ -194,7 +194,8 @@ def build_datasets(cfg: ClassifierConfig, mode: str):
         entries = load_split(root, mode=mode, which_split=d.which_split,
                              val_size=d.val_size)
         class_index = load_class_index(root)
-        source = JpegFrameSource(d.db_path, scale=d.scale_hw)
+        source = JpegFrameSource(d.db_path, scale=d.scale_hw,
+                                 fast_decode=d.fast_decode)
     return entries, class_index, source
 
 
@@ -669,8 +670,7 @@ def main(argv: list[str] | None = None):
     """Flag surface of the JAX classifier CLI (reference parser
     classifier.py:38-108)
     plus ``--device`` and ``--synthetic``; a preset supplies the defaults,
-    every flag overrides it. Flags that need what is not ported raise
-    ``NotImplementedError``."""
+    every flag overrides it."""
     p = argparse.ArgumentParser()
     p.add_argument("--preset", default="smoke", choices=sorted(CLASSIFIER_PRESETS))
     p.add_argument("--test", default="",
@@ -679,7 +679,7 @@ def main(argv: list[str] | None = None):
     # model / probe group
     p.add_argument("--net", default=None)
     p.add_argument("--remat", action="store_true", default=None,
-                   help="not ported (ROADMAP.md A.13): raises")
+                   help="rematerialize backbone activations in the backward pass")
     p.add_argument("--train_what", default=None, choices=[None, "ft", "last"])
     p.add_argument("--use_dropout", action="store_const", const=True, default=None)
     p.add_argument("--use_norm", dest="use_l2_norm", action="store_const",
@@ -694,7 +694,7 @@ def main(argv: list[str] | None = None):
     p.add_argument("--fused_aug", default=None,
                    choices=[None, "auto", "on", "off"],
                    help="fused CUDA aug kernel (default auto: on for CUDA; "
-                        "off is refused for CUDA frames)")
+                        "off: the unfused per-frame path)")
     p.add_argument("--with_color_jitter", type=int, default=None,
                    choices=[None, 0, 1],
                    help="finetune-time color jitter (classifier.py:50)")
@@ -717,8 +717,8 @@ def main(argv: list[str] | None = None):
                    help="host resize short side (classifier.py:58)")
     p.add_argument("-j", "--workers", type=int, default=None)
     p.add_argument("--fast_decode", type=int, default=None, choices=[None, 0, 1],
-                   help="the native JPEG decode; 1 is not ported "
-                        "(ROADMAP.md A.13): raises")
+                   help="native decoder DCT-domain scaled decode (needs the "
+                        "native decoder)")
     p.add_argument("--data_root", default=None)
     p.add_argument("--db_path", default=None)
     p.add_argument("--synthetic", type=int, default=None, choices=[None, 0, 1],
@@ -750,18 +750,6 @@ def main(argv: list[str] | None = None):
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
-    if args.remat:
-        raise NotImplementedError(
-            "--remat: activation rematerialisation is not ported "
-            "(ROADMAP.md A.13)")
-    if args.fast_decode:
-        raise NotImplementedError(
-            "--fast_decode 1: the native JPEG decoder is not ported "
-            "(ROADMAP.md A.13)")
-    if args.optim is not None and args.optim != "sgd":
-        raise NotImplementedError(
-            f"--optim {args.optim}: only sgd is ported (ROADMAP.md A.13)")
-
     cfg = CLASSIFIER_PRESETS[args.preset]
     num_class_by_dataset = {"ucf101": 101, "hmdb51": 51}
     if args.dataset:
@@ -783,6 +771,8 @@ def main(argv: list[str] | None = None):
         # resize (classifier.py:684-687), landscape for 4:3 frame trees
         r = data.img_resize_dim
         data = dataclasses.replace(data, scale_hw=(r, round(r * 171 / 128)))
+    if args.fast_decode is not None:
+        data = dataclasses.replace(data, fast_decode=bool(args.fast_decode))
     if args.synthetic is not None:
         data = dataclasses.replace(data, synthetic=bool(args.synthetic))
     if args.data_root or args.db_path:
@@ -796,7 +786,7 @@ def main(argv: list[str] | None = None):
         cfg,
         data=data,
         aug=aug,
-        model=_override(cfg.model, args, ("net",)),
+        model=_override(cfg.model, args, ("net", "remat")),
         optim=_override(
             dataclasses.replace(
                 cfg.optim,

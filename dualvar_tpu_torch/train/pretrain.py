@@ -50,7 +50,11 @@ tensorboardX imports): ``local/<metric>`` at each logged step,
 ``{exp}/img/profile``. ``--visualize`` writes input frames and per-stage
 attention maps as images instead of training (``visualize``).
 
-Not ported (ROADMAP.md A.13): ``--remat`` and ``--fast_decode 1`` raise.
+``--optim adam`` trains with AdamW (``make_optimizer``); ``--remat``
+recomputes the backbone's activations in the backward pass
+(``models/backbones/__init__.py:select_backbone``); ``--fast_decode 1``
+takes the native decoder's DCT-scaled decode (``data/loader.py:
+JpegFrameSource``, which raises where the native decoder cannot be built).
 """
 
 from __future__ import annotations
@@ -83,19 +87,28 @@ from .tasks import make_task, total_loss
 _AUTOCAST = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def make_optimizer(cfg: PretrainConfig, params, steps_per_epoch: int):
-    """SGD momentum 0.9 with the weight decay added to the gradient, on every
-    parameter (BN and bias included), and MultiStepLR gamma 0.1 at
-    ``epoch * steps_per_epoch`` step boundaries (reference pretrain.py:272,328).
-    Equals the JAX package's ``chain(add_decayed_weights, sgd)``. The
-    scheduler is stepped once per train step."""
+def make_optimizer(cfg, params, steps_per_epoch: int):
+    """The optimizer of both trainers (``cfg``: a pretrain or a classifier
+    config) on every parameter given (BN and bias included), and MultiStepLR
+    gamma 0.1 at ``epoch * steps_per_epoch`` step boundaries (reference
+    pretrain.py:272,328). The scheduler is stepped once per train step.
+
+    * ``'sgd'``: momentum 0.9 with the weight decay added to the gradient,
+      the JAX package's ``chain(add_decayed_weights, sgd)``;
+    * ``'adam'``: ``AdamW(betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)``,
+      the arithmetic of the JAX package's ``optax.adamw(lr,
+      weight_decay=wd)`` (decoupled decay scaled by the lr, bias-corrected
+      moments, eps outside the square root)."""
     o = cfg.optim
-    if o.optim != "sgd":
-        raise NotImplementedError(
-            f"optim={o.optim!r}: only 'sgd' is ported (ROADMAP.md A.13)")
-    optimizer = torch.optim.SGD(params, lr=o.lr, momentum=o.momentum,
-                                weight_decay=o.wd, dampening=0,
-                                nesterov=False)
+    if o.optim == "sgd":
+        optimizer = torch.optim.SGD(params, lr=o.lr, momentum=o.momentum,
+                                    weight_decay=o.wd, dampening=0,
+                                    nesterov=False)
+    elif o.optim == "adam":
+        optimizer = torch.optim.AdamW(params, lr=o.lr, betas=(0.9, 0.999),
+                                      eps=1e-8, weight_decay=o.wd)
+    else:
+        raise ValueError(f"optim must be 'sgd' or 'adam', got {o.optim!r}")
     scheduler = torch.optim.lr_scheduler.MultiStepLR(
         optimizer, milestones=[e * steps_per_epoch for e in o.schedule],
         gamma=0.1)
@@ -171,7 +184,8 @@ def build_dataset(cfg: PretrainConfig, n_views: int = 3):
         entries = load_split(root, mode="train", which_split=d.which_split,
                              val_size=d.val_size)
         class_index = load_class_index(root)
-        source = JpegFrameSource(d.db_path, scale=d.scale_hw)
+        source = JpegFrameSource(d.db_path, scale=d.scale_hw,
+                                 fast_decode=d.fast_decode)
     return PretrainDataset(
         entries=entries, class_index=class_index, source=source,
         num_frames=d.seq_len, ds=d.ds, rand_flip=cfg.aug.rand_flip,
@@ -578,6 +592,9 @@ def visualize(cfg: PretrainConfig, n_samples: int = 4,
             "--visualize writes PNGs and needs pillow (without it the "
             "writer falls back to .npy dumps and the returned paths would "
             "be wrong)")
+    if cfg.model.remat:
+        raise ValueError("--visualize needs remat=False (the rematerialised "
+                         "backbone has no multi_level forward)")
     if cfg.model.net != "r21d":
         raise ValueError(
             f"--visualize needs the multi_level backbone ('r21d'), got "
@@ -660,7 +677,9 @@ def main(argv: list[str] | None = None):
     p.add_argument("--moco_shuffle_bn", type=int, default=None,
                    help="BN batch-shuffle parity mode: number of BN groups")
     p.add_argument("--remat", action="store_true", default=None,
-                   help="not ported (ROADMAP.md A.13): raises")
+                   help="rematerialize backbone activations in the backward "
+                        "pass (torch.utils.checkpoint; less memory, about "
+                        "1/3 more FLOPs)")
     p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
                    help="autocast type of the model forward on the card")
     p.add_argument("--packed_encode", type=int, default=None,
@@ -691,10 +710,11 @@ def main(argv: list[str] | None = None):
     p.add_argument("-j", "--workers", type=int, default=None)
     p.add_argument("--num_seq", type=int, default=None)
     p.add_argument("--fast_decode", type=int, default=None, choices=[None, 0, 1],
-                   help="the native JPEG decode; 1 is not ported "
-                        "(ROADMAP.md A.13): raises")
+                   help="native decoder DCT-domain scaled decode (close to, "
+                        "not bitwise, the exact decode; needs the native "
+                        "decoder)")
     # optim group
-    p.add_argument("--optim", default=None, choices=[None, "sgd"])
+    p.add_argument("--optim", default=None, choices=[None, "sgd", "adam"])
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--wd", type=float, default=None)
@@ -728,14 +748,6 @@ def main(argv: list[str] | None = None):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-    if args.remat:
-        raise NotImplementedError(
-            "--remat: activation rematerialisation is not ported "
-            "(ROADMAP.md A.13)")
-    if args.fast_decode:
-        raise NotImplementedError(
-            "--fast_decode 1: the native JPEG decoder is not ported "
-            "(ROADMAP.md A.13)")
 
     cfg = PRETRAIN_PRESETS[args.preset]
     if args.packed_encode is not None:
@@ -743,6 +755,8 @@ def main(argv: list[str] | None = None):
     data = _override(cfg.data, args,
                      ("dataset", "data_root", "db_path", "seq_len", "ds",
                       "img_dim", "workers", "num_seq", "val_size"))
+    if args.fast_decode is not None:
+        data = dataclasses.replace(data, fast_decode=bool(args.fast_decode))
     if args.synthetic is not None:
         data = dataclasses.replace(data, synthetic=bool(args.synthetic))
     if args.data_root or args.db_path:
@@ -759,7 +773,8 @@ def main(argv: list[str] | None = None):
                         ("net", "model", "mode", "n_series", "series_dim",
                          "shufflerank_theta", "series_T", "aligned_T",
                          "moco_dim", "moco_k", "moco_m", "moco_t",
-                         "moco_shuffle_bn", "dtype", "packed_encode")),
+                         "moco_shuffle_bn", "dtype", "packed_encode",
+                         "remat")),
         optim=_override(
             dataclasses.replace(
                 cfg.optim,

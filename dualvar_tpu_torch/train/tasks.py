@@ -31,7 +31,8 @@ class SimCLRTask:
         self.cfg = cfg
         if cfg.model == "simclr_naked":
             self.model = SimCLRNaked(network=cfg.net, dim=cfg.moco_dim,
-                                     temperature=cfg.moco_t)
+                                     temperature=cfg.moco_t,
+                                     remat=cfg.remat)
             self.n_views = 2
         else:
             self.model = SimCLRTimeSeriesV4(
@@ -40,6 +41,7 @@ class SimCLRTask:
                 aligned_T=cfg.aligned_T, mode=cfg.mode,
                 shufflerank_theta=cfg.shufflerank_theta,
                 dtw_gamma=cfg.dtw_gamma, packed_encode=cfg.packed_encode,
+                remat=cfg.remat,
             )
             self.n_views = 3
 
@@ -71,7 +73,8 @@ class MoCoTask:
             series_dim=cfg.series_dim, aligned_T=cfg.aligned_T, mode=cfg.mode,
             dtw_gamma=cfg.dtw_gamma, naked=naked,
             shuffle_bn_groups=cfg.moco_shuffle_bn,
-            packed_encode=cfg.packed_encode, generator=generator,
+            packed_encode=cfg.packed_encode, remat=cfg.remat,
+            generator=generator,
         )
 
     def parameters(self):

@@ -22,6 +22,7 @@ from dualvar_tpu.aug import functional as JF
 from dualvar_tpu.ops.aug_fused import aug_fused as jax_aug_fused
 from dualvar_tpu_torch.aug import functional as TF
 from dualvar_tpu_torch.aug.pipeline import (AugConfig, _draw_clip_params,
+                                            _pretrain_batch_unfused,
                                             _use_fused, pretrain_batch,
                                             pretrain_batch_fused)
 from dualvar_tpu_torch.ops.aug_fused import (_band_plan, aug_fused,
@@ -257,29 +258,40 @@ def test_draw_clip_params_distributions_and_gates(jitter_order):
 
 
 def test_pretrain_batch_dispatch_and_unported_modes():
+    """Before the unfused path was ported, the per-frame jitter modes and
+    'off' on the card were refused; now 'auto' / 'on' take the fused path
+    (on CPU frames the kernel's plain version), 'off' and per-frame jitter
+    the unfused path (``_pretrain_batch_unfused``), and 'on' with per-frame
+    jitter raises ``ValueError`` as in the JAX package."""
     frames = torch.from_numpy(np.random.default_rng(6).integers(
         0, 256, (2, 3 * T, H0, W0, 3), dtype=np.uint8))
     outs = [pretrain_batch(torch.Generator().manual_seed(9), frames,
                            AugConfig(img_dim=SIZE, seq_len=T, fused=fused))
             for fused in ("auto", "on", "off")]
-    # on the CPU every setting ends in the plain version: identical outputs
-    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    cfg = AugConfig(img_dim=SIZE, seq_len=T)
+    fused = pretrain_batch_fused(torch.Generator().manual_seed(9), frames,
+                                 cfg, kernel=False)
+    unfused = _pretrain_batch_unfused(torch.Generator().manual_seed(9),
+                                      frames, cfg)
+    assert torch.equal(outs[0], fused) and torch.equal(outs[1], fused)
+    assert torch.equal(outs[2], unfused)
+    # the same decisions: the two paths agree to the kernel's band
+    np.testing.assert_allclose(unfused.numpy(), fused.numpy(), atol=ATOL)
     assert tuple(outs[0].shape) == (2, 3, T, SIZE, SIZE, 3)
-    with pytest.raises(NotImplementedError, match="clip-consistent"):
+    frame_cfg = AugConfig(img_dim=SIZE, seq_len=T, aug_temp_consist=False)
+    out = pretrain_batch(torch.Generator().manual_seed(9), frames, frame_cfg)
+    assert torch.equal(out, _pretrain_batch_unfused(
+        torch.Generator().manual_seed(9), frames, frame_cfg))
+    with pytest.raises(ValueError, match="clip-consistent"):
         pretrain_batch(torch.Generator(), frames,
-                       AugConfig(img_dim=SIZE, seq_len=T,
+                       AugConfig(img_dim=SIZE, seq_len=T, fused="on",
                                  aug_temp_consist=False))
     with pytest.raises(ValueError, match="auto/on/off"):
         pretrain_batch(torch.Generator(), frames,
                        AugConfig(img_dim=SIZE, seq_len=T, fused="maybe"))
-    # 'off' on a CUDA device raises: the plain version never stands in for
-    # the kernel on the card ('auto' and 'on' take the kernel there)
-    cuda = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="per-frame"):
-        _use_fused(AugConfig(fused="off"), cuda)
-    assert _use_fused(AugConfig(fused="auto"), cuda)
-    assert _use_fused(AugConfig(fused="on"), cuda)
-    assert not _use_fused(AugConfig(fused="off"), torch.device("cpu"))
+    assert _use_fused(AugConfig(fused="auto"))
+    assert _use_fused(AugConfig(fused="on"))
+    assert not _use_fused(AugConfig(fused="off"))
 
 
 def _w_pass(x, k):

@@ -52,6 +52,9 @@ print("\\n".join(names))
             "dualvar_tpu_torch.core.utils",
             "dualvar_tpu_torch.export",
             "dualvar_tpu_torch.models.ssl.moco",
+            "dualvar_tpu_torch.native",
+            "dualvar_tpu_torch.data.prep.write_csv",
+            "dualvar_tpu_torch.data.prep.extract_frames",
             "dualvar_tpu_torch.train.pretrain"} <= set(names)
     # the kernels' sources are data beside the package, not modules of it
     assert not any("csrc" in name for name in names)
@@ -164,3 +167,30 @@ def test_other_source_and_ptxas_log_are_keyed_like_the_library(
     assert build.ptxas_log_path("k") == lib + ".ptxas.log"
     assert build.ptxas_log_path("k", str(other)) == \
         build.library_path("k", str(other)) + ".ptxas.log"
+
+
+def test_top_level_api_is_the_jax_packages_and_lazy():
+    """``dualvar_tpu_torch.<name>`` for the JAX package's eleven top-level
+    names, each the port's object, imported at first use; importing the
+    package alone loads no model or kernel module (in a fresh process)."""
+    import dualvar_tpu
+    import dualvar_tpu_torch
+
+    jax_names = set(ast.literal_eval(next(
+        n.value for n in ast.walk(ast.parse(open(dualvar_tpu.__file__).read()))
+        if isinstance(n, ast.Assign) and n.targets[0].id == "exports")))
+    assert set(dualvar_tpu_torch._EXPORTS) == jax_names
+    assert len(jax_names) == 11
+    import importlib
+
+    for name in sorted(jax_names):
+        module, attr = dualvar_tpu_torch._EXPORTS[name]
+        assert module.startswith("dualvar_tpu_torch."), (name, module)
+        assert getattr(dualvar_tpu_torch, name) is getattr(
+            importlib.import_module(module), attr)
+    with pytest.raises(AttributeError):
+        dualvar_tpu_torch.not_a_name  # noqa: B018
+    out = _run("import sys, dualvar_tpu_torch; print(sorted(m for m in "
+               "sys.modules if m.startswith('dualvar_tpu_torch')))")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["['dualvar_tpu_torch']"]

@@ -89,9 +89,20 @@ def test_lr_schedule_matches_optax_boundaries():
             float(lr_fn(step)), rel=1e-6), step
         optimizer.step()
         scheduler.step()
-    with pytest.raises(NotImplementedError, match="sgd"):
+    # AdamW (ported since; its arithmetic is held against optax.adamw in
+    # tests/test_torch_port_optim_remat.py) runs under the same schedule;
+    # a name neither package knows is refused
+    adam_opt, adam_sched = make_optimizer(pcfg.replace(
+        optim=dataclasses.replace(pcfg.optim, optim="adam")), [w], 3)
+    assert isinstance(adam_opt, torch.optim.AdamW)
+    for step in range(12):
+        assert adam_opt.param_groups[0]["lr"] == pytest.approx(
+            float(lr_fn(step)), rel=1e-6), step
+        adam_opt.step()
+        adam_sched.step()
+    with pytest.raises(ValueError, match="sgd"):
         make_optimizer(pcfg.replace(optim=dataclasses.replace(
-            pcfg.optim, optim="adam")), [w], 3)
+            pcfg.optim, optim="lamb")), [w], 3)
 
 
 def _smoke_cfg(tmp_path, **model_kw) -> PretrainConfig:
