@@ -10,14 +10,19 @@ Phases, each fatal on failure (non-zero exit):
 1. device: card name and power limit, CUDA version, TF32 flags;
 2. build: every CUDA kernel of the paths below, from
    ``dualvar_tpu_torch/csrc``, one ``nvcc`` a source, all started together;
-   the soft-DTW kernels must show no stack frame and no spills in the
-   ptxas log;
+   the soft-DTW and channel-sum kernels must show no stack frame and no
+   spills in the ptxas log;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it, then timed beside its roofline bound:
    ``aug_fused``, the soft-DTW forward and backward kernels (every column
    bucket and both routes, at path M's and path M16's shapes; timed with
    their data out of L2, the rows route beside the 2x2 route), the channel
-   sums of the batch norm (``channel_sums``; also against float64 sums) and
+   sums of the batch norm (``channel_sums``; also against float64 sums, at
+   path R's and path G's shapes, ragged runs, one channel and data off a
+   16-byte boundary, every call twice bitwise equal and one CUDA kernel a
+   call; path R's 24 calls of a step timed in L2 and out of it beside ATen's
+   reductions, with the host's time a call and the replay floor of an empty
+   kernel) and
    the 3x3x3 conv with BN statistics (``conv3d_bn_stats``, both routes: the
    bfloat16 tensor-core kernel and the float32 CUDA-core kernel; its sums
    also against float64 sums of its own output, at three grid sizes); the
@@ -118,7 +123,8 @@ Phases, each fatal on failure (non-zero exit):
    and its cost tensor take), of path R at B=8, 32 and 128 with the
    variable on and off, of the classifier's finetune step at B=4 (the
    median of five 20-step windows, with each window's time) and 32, of
-   path G at B=8 (five windows) and 32, and of each backbone step at B=8;
+   path G at B=8 (five windows, with ATen's batch norm and under
+   ``DUALVAR_BN_STATS=pallas``) and 32, and of each backbone step at B=8;
 5. on-card float32 checks: one train-mode forward with TF32 off against the
    same forward on the CPU from the same weights and block, for the SimCLR
    model, for MoCo in mode ``clip-sr-dtw`` (where the CPU side runs the
@@ -129,7 +135,9 @@ Phases, each fatal on failure (non-zero exit):
    backbone step with the backbone's features compared too (card against
    CPU, and the CPU's float32 against its float64, at a fixed tolerance a
    family); and ``channel_sums`` on every batch norm's own maps of one
-   path-G step (308 calls), against float64 sums, timed together.
+   path-G step (308 calls), against float64 sums, timed together in L2 and
+   out of it with a breakdown by call size; then one ``channel_sums`` call
+   in a ``torch.profiler`` trace.
 
 The last lines of standard output are the script's wall time, one JSON
 object describing every kernel (``{"kernels": [...]}``), the card's name and
@@ -217,6 +225,40 @@ SUMS_RTOL = 1e-5
 # layer 1, layers 2, 3, 4 (three batch norms each, 12 in all)
 R3D_MAPS = ((16, 64, 16, 56, 56), (16, 128, 8, 28, 28), (16, 256, 4, 14, 14),
             (16, 512, 2, 7, 7))
+# channel_sums cases beyond path R's maps: (shape, dtype, layout, offsets
+# of a and b in elements from a 16-byte boundary). Path G's widths 16 and
+# 384 at its shapes (S3D-G at B=8: 24 clips, then 8), its runs of 196, a
+# run of 98, a map smaller than one block's batch, one channel,
+# channels-last rows over many blocks, and data off a 16-byte boundary
+# (both alike: 16-byte chunks; unlike: one element a load)
+SUMS_CASES = (
+    ((24, 16, 2, 28, 28), "bfloat16", "ncdhw", (0, 0)),
+    ((8, 384, 2, 3, 3), "bfloat16", "ncdhw", (0, 0)),
+    ((24, 320, 4, 7, 7), "bfloat16", "ncdhw", (0, 0)),
+    ((16, 40, 2, 7, 7), "bfloat16", "ncdhw", (0, 0)),
+    ((2, 8, 1, 3, 5), "bfloat16", "ncdhw", (0, 0)),
+    ((4, 1, 16, 56, 56), "bfloat16", "ncdhw", (0, 0)),
+    ((4, 1, 3, 5, 7), "float32", "ncdhw", (1, 1)),
+    ((8, 32, 8, 28, 28), "bfloat16", "channels_last_3d", (0, 0)),
+    ((16, 512, 2, 7, 7), "bfloat16", "ncdhw", (3, 3)),
+    ((16, 64, 4, 28, 28), "bfloat16", "ncdhw", (5, 5)),
+    ((3, 24, 7, 11, 13), "float32", "ncdhw", (1, 1)),
+    ((16, 64, 4, 14, 14), "bfloat16", "ncdhw", (2, 5)),
+    ((3, 24, 7, 11, 13), "bfloat16", "channels_last_3d", (2, 2)),
+)
+# the breakdown's copies of one small call: at most this many a replay
+SUMS_MAX_COPIES = 4096
+# byte sizes of the breakdown's buckets (a call's inputs and outputs)
+SUMS_BUCKETS = (64 << 10, 1 << 20, 8 << 20)
+# an empty kernel: the replay floor of one launch from a CUDA graph
+LAUNCH_FLOOR_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
 # conv3d_bn_stats: y against a float32 convolution of the same bf16 inputs
 # is within half a bfloat16 ulp (2**-8 of |y|) plus float32 sum order;
 # against another bf16 result (cuDNN's) within one ulp (2**-7 of |y|)
@@ -356,7 +398,8 @@ def check_aug_kernel(torch, device) -> dict:
               f"(atol {BF16_ATOL})", flush=True)
 
     # timing at the main-path shape (B=8 -> N=24, float32 out), and for the
-    # record at B=32 -> N=96
+    # record at B=32 -> N=96; ms in L2 (the same tensors replayed), cold_ms
+    # out of it
     entry = {}
     for n in (24, 96):
         clips, orders, factors, blur = aug_inputs(torch, n, 16, 112, 2, device)
@@ -373,8 +416,22 @@ def check_aug_kernel(torch, device) -> dict:
             clips, orders, factors, blur), 30)
         plain_ms = time_cuda(torch, lambda: mod.aug_fused_plain(
             clips, orders, factors, blur), 5, warmup=1)
-        row = {"ms": ms, "eager_ms": eager_ms, "wrapper_ms": wrapper_ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+        # out of L2: copies of the inputs that hold four L2s, launched in
+        # turn, each launch keeping its own output
+        copies = cold_copies(torch, clips.numel() * (1 + 4))
+        sets = [(clips.clone(), orders.clone(), factors.clone(),
+                 blur.clone()) for _ in range(copies)]
+        outs = []
+
+        def launch(c):
+            outs.append(mod._launch(*sets[c], torch.float32, True))
+
+        cold_ms = time_cuda_graph_cold(torch, launch, copies)
+        del sets, outs
+        row = {"ms": ms, "cold_ms": cold_ms, "eager_ms": eager_ms,
+               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": bound_by,
+               "cold_bound_share": bound / cold_ms}
         print(f"kernels: aug_fused timing N={n} T=16 S=112 f32: "
               + json.dumps(row), flush=True)
         if n == 24:
@@ -467,9 +524,11 @@ def dtw_inputs(torch, P, N, M, seed, device):
 
 
 def off_boundary(t, floats: int):
-    """A copy of ``t`` whose data starts ``floats`` floats past a 16-byte
-    boundary (the allocator's blocks start on one)."""
-    return t.new_empty(t.numel() + floats)[floats:].view_as(t).copy_(t)
+    """A copy of ``t``, in its memory layout, whose data starts ``floats``
+    elements past a 16-byte boundary (the allocator's blocks start on
+    one)."""
+    return t.new_empty(t.numel() + floats)[floats:].as_strided(
+        t.shape, t.stride()).copy_(t)
 
 
 def l2_bytes(torch) -> int:
@@ -555,17 +614,25 @@ def ptxas_report(name: str) -> list[dict]:
     return rows
 
 
-def check_soft_dtw_ptxas() -> list[dict]:
-    """Every soft-DTW instantiation (rows route at buckets 2, 4, 8, 16 and
-    the 2x2 route, forward and backward) keeps its rows in registers: no
-    stack frame, no spills."""
-    rows = ptxas_report("soft_dtw")
-    print("build: soft_dtw kernels " + json.dumps(rows), flush=True)
-    if len(rows) != 10 or any(
+# kernels of a library that must keep everything in registers: soft-DTW's
+# rows route at buckets 2, 4, 8, 16 and its 2x2 route, forward and backward
+# (10); channel_sums' planar kernel (float32 and bfloat16; 16-byte chunks
+# whole or masked, or one element a chunk; one input or two) and its
+# channels-last kernel (both types, 16-byte chunks or one element, one
+# input or two) (20)
+PTXAS_CLEAN = {"soft_dtw": 10, "bn_stats": 20}
+
+
+def check_ptxas_clean(name: str) -> list[dict]:
+    """Every kernel of library ``name`` (``PTXAS_CLEAN`` of them) has no
+    stack frame and no spills in its ptxas log."""
+    rows = ptxas_report(name)
+    print(f"build: {name} kernels " + json.dumps(rows), flush=True)
+    if len(rows) != PTXAS_CLEAN[name] or any(
             row.get("stack", 1) or row.get("spill_stores", 1)
             or row.get("spill_loads", 1) for row in rows):
-        fail("soft_dtw: not 10 kernels with 0 bytes of stack and spills in "
-             f"the ptxas log: {rows}")
+        fail(f"{name}: not {PTXAS_CLEAN[name]} kernels with 0 bytes of "
+             f"stack and spills in the ptxas log: {rows}")
     return rows
 
 
@@ -738,10 +805,11 @@ def sums_errors(torch, a, b) -> tuple[float, float]:
     """channel_sums(a, b) over dim 1 against float64 sums and against its
     plain version: the largest error relative to the summed magnitudes
     (sum |a|, sum |a*b|), and the largest absolute difference from the
-    plain version."""
+    plain version. Fails unless a second call gives the same bits."""
     from dualvar_tpu_torch.ops import bn_stats as mod
 
     s1, s2 = mod.channel_sums(a, b, dim=1)
+    again = mod.channel_sums(a, b, dim=1)
     p1, p2 = mod.channel_sums_plain(a, b, dim=1)
     a64, b64 = a.double(), b.double()
     dims = (0, 2, 3, 4)
@@ -751,6 +819,9 @@ def sums_errors(torch, a, b) -> tuple[float, float]:
     m1 = a64.abs().sum(dims).clamp_min(1e-300)
     m2 = (a64 * b64).abs().sum(dims).clamp_min(1e-300)
     torch.cuda.synchronize()
+    if not (torch.equal(s1, again[0]) and torch.equal(s2, again[1])):
+        fail(f"channel_sums {tuple(a.shape)} {a.dtype}: two calls on the "
+             "same input differ")
     err = max(float(((s1.double() - r1).abs() / m1).max()),
               float(((s2.double() - r2).abs() / m2).max()),
               float(((s1 - p1).double().abs() / m1).max()),
@@ -759,12 +830,268 @@ def sums_errors(torch, a, b) -> tuple[float, float]:
                     float((s2 - p2).abs().max()))
 
 
-def check_channel_sums_kernel(torch, device) -> dict:
+def sums_case(torch, shape, dtype: str, layout: str, offsets, gen):
+    """The calls (x, x) and (g, x) of one ``SUMS_CASES`` entry on the card:
+    x of the first and g at the first offset, the second call's x at the
+    second."""
+    fmt = (torch.channels_last_3d if layout == "channels_last_3d"
+           else torch.contiguous_format)
+    base = torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5
+    other = torch.randn(shape, device="cuda", generator=gen)
+    x, g = (t.to(getattr(torch, dtype)).contiguous(memory_format=fmt)
+            for t in (base, other))
+    xa = off_boundary(x, offsets[0])
+    return ((xa, xa),
+            (off_boundary(g, offsets[0]), off_boundary(x, offsets[1])))
+
+
+def graph_kernels(torch, fn) -> int:
+    """The kernels one ``fn()`` launches: the kernel nodes of a CUDA graph
+    that captures it (the driver's ``cuGraphGetNodes`` and
+    ``cuGraphNodeGetType``)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(raw, None, ctypes.byref(count)) != 0:
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(count))
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                   ctypes.byref(kind)) != 0:
+            fail("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels
+
+
+def check_sums_profiler(torch) -> list[str]:
+    """The device kernels of one channel_sums call in a ``torch.profiler``
+    trace: exactly one, a channel_sums kernel, or none where the profiler
+    records no device event (said, not failed). Run after the paths, so
+    the main path's ``--profile_steps`` trace is the process's first."""
+    from dualvar_tpu_torch.ops import bn_stats as mod
+
+    from torch.profiler import ProfilerActivity, profile
+
+    x = (torch.randn((24, 64, 8, 28, 28), device="cuda") * 2 + 0.5).to(
+        torch.bfloat16)
+    mod.channel_sums(x, x, dim=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mod.channel_sums(x, x, dim=1)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    if names and (len(names) != 1 or "channel_sums" not in names[0]):
+        fail(f"channel_sums: one call ran {len(names)} device kernels by "
+             f"the profiler: {names}")
+    print(f"kernels: channel_sums, one call in a torch.profiler trace: "
+          f"{len(names)} device kernel(s) {names}"
+          + ("" if names else " (the profiler recorded no device event)"),
+          flush=True)
+    return names
+
+
+def sums_call_bytes(a, b) -> int:
+    """Bytes one channel_sums(a, b) call must move: its inputs read once
+    (a alone when b is a), 8*C bytes written."""
+    return (1 if b is a else 2) * a.numel() * a.element_size() + 8 * a.shape[1]
+
+
+def private_calls(calls) -> list[tuple]:
+    """``calls`` on tensors of their own: each input cloned in its layout,
+    a call with b is a keeping one input."""
+    out = []
+    for a, b in calls:
+        a2 = a.clone()
+        out.append((a2, a2 if b is a else b.clone()))
+    return out
+
+
+def time_calls_cold(torch, fn, calls, iters: int = 5) -> float:
+    """Milliseconds of ``fn(a, b)`` over ``calls`` in order, each call on
+    tensors of its own, with as many copies of the whole list as hold four
+    L2s, replayed in turn from a CUDA graph (``time_cuda_graph_cold``): no
+    call finds its inputs in L2."""
+    copies = cold_copies(torch, sum(sums_call_bytes(a, b) for a, b in calls))
+    sets = [private_calls(calls) for _ in range(copies)]
+
+    def launch(c):
+        for a, b in sets[c]:
+            fn(a, b)
+
+    return time_cuda_graph_cold(torch, launch, copies, iters)
+
+
+def host_us_per_call(torch, fn, calls, rounds: int = 5) -> float:
+    """Host microseconds of one ``fn(a, b)``: the calls run eagerly in
+    order with a host clock around them and no synchronise (their device
+    time is below their host time, so the launch queue never fills), the
+    median of ``rounds``."""
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for a, b in calls:
+            fn(a, b)
+        times.append((time.perf_counter() - tic) / len(calls) * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def aten_sums(torch):
+    """``fn(a, b)``: ATen's reductions for the same information as
+    channel_sums, ``batch_norm_stats`` (b is a) or
+    ``batch_norm_backward_reduce`` (a = g, b = x); the library's time."""
+    consts = {}
+
+    def fn(a, b):
+        C = a.shape[1]
+        if C not in consts:
+            ones = torch.ones(C, device=a.device)
+            consts[C] = (torch.zeros_like(ones), ones)
+        zeros, ones = consts[C]
+        if b is a:
+            torch.batch_norm_stats(a, 1e-5)
+        else:
+            torch.batch_norm_backward_reduce(a, b, zeros, ones, ones, True,
+                                             True, True)
+
+    return fn
+
+
+def kernel_sums(mod):
+    """``fn(a, b)``: ``mod.channel_sums`` over dim 1."""
+    return lambda a, b: mod.channel_sums(a, b, dim=1)
+
+
+def measure_sums(torch, fn, calls, floor=None) -> dict:
+    """``fn(a, b)`` over one step's channel-sum ``calls``, against their
+    bytes bound:
+
+    - ``ms``: each distinct call (shape, dtype, layout, one or two inputs)
+      replayed on the same tensors (``time_cuda_graph``: in L2 where it
+      fits), times its count;
+    - ``cold_ms``: the calls in order, out of L2 (``time_calls_cold``);
+    - ``host_us``: the host's time a call (``host_us_per_call``);
+    - ``floor_ms``: an empty kernel replayed from a graph, once a call;
+    - ``per_call``: each distinct call's bytes, C, inner, layout, count and
+      time out of L2 (copies of it replayed in turn, at most
+      ``SUMS_MAX_COPIES``: a call under 50 KB then keeps part of its data in
+      L2, ``"l2": true``), beside its bound; ``by_size``: the same summed
+      by the bytes of a call."""
+    from dualvar_tpu_torch.ops.bn_stats import _view
+
+    groups = {}
+    for a, b in calls:
+        layout = "ncdhw" if a.is_contiguous() else "channels_last_3d"
+        key = (tuple(a.shape), str(a.dtype).replace("torch.", ""), layout,
+               b is a)
+        groups.setdefault(key, [0, a, b])[0] += 1
+    rows = []
+    for (shape, dtype, layout, same), (n, a, b) in groups.items():
+        nbytes = sums_call_bytes(a, b)
+        copies = min(cold_copies(torch, nbytes), SUMS_MAX_COPIES)
+        sets = private_calls([(a, b)] * copies)
+        hot = time_cuda_graph(torch, lambda: fn(a, b), 20, iters=5)
+        cold = time_cuda_graph_cold(torch, lambda c: fn(*sets[c]), copies,
+                                    iters=3)
+        del sets
+        _, C, inner = _view(a, 1)
+        bound = sums_bound_ms(a.numel(), C, a.element_size(),
+                              backward=not same)[0]
+        rows.append({"shape": list(shape), "dtype": dtype, "layout": layout,
+                     "inputs": 1 if same else 2, "C": C, "inner": inner,
+                     "bytes": nbytes, "calls": n, "hot_us": hot * 1e3,
+                     "us": cold * 1e3, "bound_us": bound * 1e3,
+                     "share": bound / cold,
+                     "l2": copies * nbytes < 4 * l2_bytes(torch)})
+    by_size = []
+    for lo, hi in zip((0,) + SUMS_BUCKETS, SUMS_BUCKETS + (None,)):
+        part = [r for r in rows
+                if r["bytes"] >= lo and (hi is None or r["bytes"] < hi)]
+        if part:
+            us = sum(r["us"] * r["calls"] for r in part)
+            bound = sum(r["bound_us"] * r["calls"] for r in part)
+            by_size.append({"bytes_from": lo, "bytes_to": hi,
+                            "calls": sum(r["calls"] for r in part),
+                            "us": us, "bound_us": bound,
+                            "share": bound / us})
+    out = {"calls": len(calls),
+           "ms": sum(r["hot_us"] * r["calls"] for r in rows) / 1e3,
+           "cold_ms": time_calls_cold(torch, fn, calls),
+           "sum_of_calls_cold_ms": sum(r["us"] * r["calls"]
+                                       for r in rows) / 1e3,
+           "bound_ms": sum(r["bound_us"] * r["calls"] for r in rows) / 1e3,
+           "host_us": host_us_per_call(torch, fn, calls)}
+    if floor is not None:
+        out["floor_ms"] = time_cuda_graph(torch, floor, len(calls)) \
+            * len(calls)
+    out["share_cold"] = out["bound_ms"] / out["cold_ms"]
+    out["by_size"] = by_size
+    out["per_call"] = rows
+    return out
+
+
+def launch_floor_kernel(torch):
+    """``fn()``: launch the empty kernel of ``LAUNCH_FLOOR_CU`` on the
+    current stream; the source is written under build/ beside this file and
+    built as the package's kernels are."""
+    import ctypes
+
+    from dualvar_tpu_torch.ops.build import load_library
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "launch_floor", "launch_floor.cu")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write(LAUNCH_FLOOR_CU)
+    fn = load_library("launch_floor", source=path).empty_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+
+    def launch():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            fail("the empty kernel did not launch")
+
+    return launch
+
+
+def path_r_sum_calls(torch, gen) -> list[tuple]:
+    """The 24 channel_sums calls of a B=8 step of path R, bf16 NCDHW as the
+    step gives them: three batch norms a map shape (``R3D_MAPS``), each
+    with its own x and g, the forward calls (x, x) in layer order, then the
+    backward calls (g, x) in reverse."""
+    fwd, bwd = [], []
+    for shape in R3D_MAPS:
+        for _ in range(3):
+            x = (torch.randn(shape, device="cuda", generator=gen) * 2
+                 + 0.5).to(torch.bfloat16)
+            g = torch.randn(shape, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            fwd.append((x, x))
+            bwd.append((g, x))
+    return fwd + bwd[::-1]
+
+
+def check_channel_sums_kernel(torch, device, floor) -> dict:
     """channel_sums against float64 sums and its plain version on the card,
     at path R's map shapes and a ragged one, in NCDHW and channels_last_3d,
-    float32 and bfloat16, a = b and a != b; then its time at path R's shapes
-    (CUDA-graph replays), beside ATen's reductions for the same
-    information."""
+    float32 and bfloat16, a = b and a != b, and at ``SUMS_CASES``; each
+    case twice, bitwise equal; one CUDA kernel a call (profiler); then
+    path R's 24 calls of a B=8 step timed in L2 and out of it
+    (``measure_sums``), beside ATen's reductions for the same information
+    and the plain version."""
     from dualvar_tpu_torch.ops import bn_stats as mod
 
     gen = torch.Generator(device=device).manual_seed(5)
@@ -784,52 +1111,69 @@ def check_channel_sums_kernel(torch, device) -> dict:
                         fail(f"channel_sums {shape} {dtype} {fmt} "
                              f"a{'=' if b is a else '!='}b: relative error "
                              f"{err} > {SUMS_RTOL}")
+    for shape, dtype, layout, offsets in SUMS_CASES:
+        for a, b in sums_case(torch, shape, dtype, layout, offsets, gen):
+            err, err_abs = sums_errors(torch, a, b)
+            worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
+            if not err <= SUMS_RTOL:
+                fail(f"channel_sums {shape} {dtype} {layout} offsets "
+                     f"{offsets} a{'=' if b is a else '!='}b: relative "
+                     f"error {err} > {SUMS_RTOL}")
     print(f"kernels: channel_sums vs float64 and plain, {len(R3D_MAPS) + 1} "
-          f"shapes x 2 layouts x 2 dtypes x (a=b, a!=b): worst error "
-          f"{worst:.3e} of the summed magnitudes (rtol {SUMS_RTOL}); largest "
-          f"absolute difference from the plain version {worst_abs:.3e}",
-          flush=True)
+          f"shapes x 2 layouts x 2 dtypes x (a=b, a!=b) and "
+          f"{len(SUMS_CASES)} more cases x (a=b, a!=b), each twice bitwise "
+          f"equal: worst error {worst:.3e} of the summed magnitudes (rtol "
+          f"{SUMS_RTOL}); largest absolute difference from the plain version "
+          f"{worst_abs:.3e}", flush=True)
 
-    # timing, bfloat16 NCDHW as the bf16 step gives them: each map shape
-    # once forward (x, x) and once backward (g, x); a step runs each three
-    # times (12 batch norms). B=32 for the layer-1 map besides.
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    rows = []
-    for shape in R3D_MAPS + ((64, 64, 16, 56, 56),):
-        x = torch.randn(shape, device=device, generator=gen).to(
-            torch.bfloat16)
-        g = torch.randn(shape, device=device, generator=gen).to(
-            torch.bfloat16)
-        C = shape[1]
-        mean = torch.zeros(C, device=device)
-        invstd = torch.ones(C, device=device)
-        weight = torch.ones(C, device=device)
-        for backward, a, b in ((False, x, x), (True, g, x)):
-            bound, bound_by = sums_bound_ms(x.numel(), C, 2, backward)
-            if backward:
-                def library():
-                    torch.batch_norm_backward_reduce(
-                        g, x, mean, invstd, weight, True, True, True)
-            else:
-                def library():
-                    torch.batch_norm_stats(x, 1e-5)
-            row = {
-                "shape": list(shape), "backward": backward,
-                "ms": time_cuda_graph(
-                    torch, lambda: mod.channel_sums(a, b, dim=1), 10),
-                "plain_ms": time_cuda(
-                    torch, lambda: mod.channel_sums_plain(a, b, dim=1), 10),
-                "library_ms": time_cuda_graph(torch, library, 10),
-                "bound_ms": bound, "bound_by": bound_by}
-            print("kernels: channel_sums timing " + json.dumps(row),
-                  flush=True)
-            rows.append(row)
-            if shape[0] == 16:
-                for key in totals:
-                    totals[key] += 3 * row[key]
-        del x, g
+    # one kernel a call, counted in a CUDA graph of the call: channels of
+    # several blocks combined by the counter (path R's layer 1, backward,
+    # 8 blocks; path G's Conv_2b, 8; one channel of 25 blocks), one block a
+    # channel (layer 4) and channels-last rows over many blocks; each
+    # planar probe's split asserted from the wrapper's plan
+    probe_cases = (((16, 64, 16, 56, 56), "ncdhw", 1, 8),
+                   ((24, 64, 8, 28, 28), "ncdhw", 0, 8),
+                   ((4, 1, 16, 56, 56), "ncdhw", 1, 25),
+                   ((16, 512, 2, 7, 7), "ncdhw", 0, 1),
+                   ((8, 32, 8, 28, 28), "channels_last_3d", 1, None))
+    probes = []
+    for shape, layout, k, split in probe_cases:
+        a, b = sums_case(torch, shape, "bfloat16", layout, (0, 0), gen)[k]
+        if split is not None:
+            outer, C, inner = mod._view(a, 1)
+            got = mod._plan(outer, C, inner, a.element_size(), 0, True,
+                            b is a)[4]
+            if got != split:
+                fail(f"channel_sums probe {shape}: {got} blocks a channel, "
+                     f"not {split}")
+        probes.append((a, b))
+    per_call = [graph_kernels(torch, lambda: mod.channel_sums(a, b, dim=1))
+                for a, b in probes]
+    if per_call != [1] * len(probes):
+        fail(f"channel_sums: kernels a call {per_call}, not 1 each")
+    print(f"kernels: channel_sums, one CUDA kernel a call (kernel nodes of a "
+          f"graph of one call: {per_call})", flush=True)
+    del probes
+
+    calls = path_r_sum_calls(torch, gen)
+    kernel = measure_sums(torch, kernel_sums(mod), calls, floor)
+    library = measure_sums(torch, aten_sums(torch), calls)
+    plain_ms = 0.0
+    for a, b in calls[:len(calls) // 2:3] + calls[len(calls) // 2::3]:
+        plain_ms += 3 * time_cuda(
+            torch, lambda: mod.channel_sums_plain(a, b, dim=1), 10)
+    for row in kernel["per_call"]:
+        print("kernels: channel_sums timing, path R " + json.dumps(row),
+              flush=True)
+    totals = {"ms": kernel["ms"], "cold_ms": kernel["cold_ms"],
+              "plain_ms": plain_ms, "library_ms": library["ms"],
+              "library_cold_ms": library["cold_ms"],
+              "bound_ms": kernel["bound_ms"], "host_us": kernel["host_us"],
+              "floor_ms": kernel["floor_ms"]}
     print("kernels: channel_sums, a B=8 step of path R (12 forward + 12 "
-          "backward calls): " + json.dumps(totals), flush=True)
+          "backward calls; ms in L2, cold_ms out of it): "
+          + json.dumps(totals), flush=True)
+    del calls
     torch.cuda.empty_cache()
     return {"name": "channel_sums", "route": "cuda",
             "source": "dualvar_tpu_torch/csrc/bn_stats.cu",
@@ -839,11 +1183,15 @@ def check_channel_sums_kernel(torch, device) -> dict:
             "shape": "path R, B=8: the 12 forward and 12 backward calls of "
                      "one step",
             **totals, "bound_by": "bytes",
+            "kernels_a_call": per_call,
+            # set at the end of the run (check_sums_profiler)
+            "profiler_kernels_a_call": None,
             # ATen's batch_norm_stats (forward) and
             # batch_norm_backward_reduce (backward) on the same maps
             "library": "torch.batch_norm_stats + "
                        "torch.batch_norm_backward_reduce",
-            "per_call": rows}
+            # the per-call rows are printed above, not carried here
+            "by_size": kernel["by_size"]}
 
 
 def conv_bound_ms(N, T, H, W, C, Co, elem_bytes) -> tuple[float, str]:
@@ -987,6 +1335,17 @@ def check_conv_kernel(torch, device) -> tuple[dict, dict]:
                     torch, lambda: torch.nn.functional.conv3d(
                         x_ncdhw, w_ncdhw, padding=1), 5, warmup=1),
                 "bound_ms": bound, "bound_by": bound_by}
+            if dtype == torch.bfloat16 and N == 16:
+                # out of L2: copies of x and w that hold four L2s with
+                # their outputs, launched in turn
+                nbytes = 2 * x.numel() * x.element_size()
+                copies = cold_copies(torch, nbytes)
+                sets = [(x.clone(), w.clone()) for _ in range(copies)]
+                row["cold_ms"] = time_cuda_graph_cold(
+                    torch, lambda c: mod.conv3d_bn_stats_forward(*sets[c]),
+                    copies, iters=5)
+                row["cold_bound_share"] = bound / row["cold_ms"]
+                del sets
             print("kernels: conv3d_bn_stats timing " + json.dumps(row),
                   flush=True)
             entries.setdefault(dtype, row)
@@ -1700,22 +2059,22 @@ def run_path_g(torch, log_root: str) -> tuple[dict, dict]:
     return state, by_run
 
 
-def check_sums_on_path_g(torch, cfg, state: dict) -> dict:
-    """channel_sums on path G's own maps: one train step of the model path G
-    trained (variable on, bf16 autocast) with every batch norm's input and
-    the gradient of its output hooked — 77 layers of 16 to 384 channels,
-    each in both backbone passes, so the step's 154 forward calls (x, x)
-    and 154 backward calls (g, x) exactly as the layer makes them. Each call
-    against float64 sums and the plain version (``SUMS_RTOL``); then the
-    308 calls timed together, replayed from one CUDA graph, beside the
-    plain version and ATen's pair on the same maps."""
+def path_g_sum_calls(torch, cfg, state: dict | None) -> list[tuple]:
+    """The channel_sums calls of one train step of path G (variable on,
+    bf16 autocast) from ``state`` (None: the model's own initialisation),
+    with every batch norm's input and the gradient of its output hooked —
+    77 layers of 16 to 384 channels, each in both backbone passes, so the
+    step's 154 forward calls (x, x) and 154 backward calls (g, x) exactly
+    as the layer makes them, in the order it makes them. Fails unless the
+    step launched as many."""
     from dualvar_tpu_torch.models.layers import BatchNorm, _memory_format
     from dualvar_tpu_torch.ops import bn_stats as mod
     from dualvar_tpu_torch.train.pretrain import setup_training
 
     with bn_stats_env(True):
         setup = setup_training(cfg, "cuda")
-        setup.model.load_state_dict(state)
+        if state is not None:
+            setup.model.load_state_dict(state)
         with setup.loader as loader:
             frames = torch.from_numpy(
                 next(loader.epoch(0))["frames"]).to("cuda")
@@ -1741,50 +2100,55 @@ def check_sums_on_path_g(torch, cfg, state: dict) -> dict:
         fail(f"path G step: {len(layers)} batch norms, {len(calls)} calls "
              f"hooked, {launched} launched; expected {S3DG_BATCH_NORMS} and "
              f"{S3DG_SUMS_PER_STEP}")
+    del setup
+    return calls
+
+
+def check_sums_on_path_g(torch, cfg, state: dict, floor) -> dict:
+    """channel_sums on path G's own maps (``path_g_sum_calls``): each call
+    against float64 sums and the plain version (``SUMS_RTOL``), twice
+    bitwise equal; then the 308 calls timed together as the step makes
+    them (replayed from one CUDA graph), in L2 and out of it with the
+    per-call breakdown (``measure_sums``), beside the plain version and
+    ATen's pair on the same maps."""
+    from dualvar_tpu_torch.ops import bn_stats as mod
+
+    calls = path_g_sum_calls(torch, cfg, state)
     worst = worst_abs = 0.0
     for a, b in calls:
         err, err_abs = sums_errors(torch, a, b)
         worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
-    bound = 0.0
-    library_args = []
-    for a, b in calls:
-        C = a.shape[1]
-        bound += sums_bound_ms(a.numel(), C, a.element_size(),
-                               backward=b is not a)[0]
-        ones = torch.ones(C, device=a.device)
-        library_args.append((a, b, torch.zeros_like(ones), ones))
-
-    def kernel():
-        for a, b in calls:
-            mod.channel_sums(a, b, dim=1)
-
-    def plain():
-        for a, b in calls:
-            mod.channel_sums_plain(a, b, dim=1)
-
-    def library():
-        for a, b, mean, ones in library_args:
-            if b is a:
-                torch.batch_norm_stats(a, 1e-5)
-            else:
-                torch.batch_norm_backward_reduce(a, b, mean, ones, ones,
-                                                 True, True, True)
-
-    row = {"calls": len(calls), "batch_norms": len(layers),
-           "widths": sorted({m.weight.numel() for m in layers}),
-           "dtypes": sorted({str(a.dtype) for a, _ in calls}),
-           "max_rel_err": worst, "max_abs_err": worst_abs,
-           "ms": time_cuda_graph(torch, kernel, 1),
-           "plain_ms": time_cuda(torch, plain, 5),
-           "library_ms": time_cuda_graph(torch, library, 1),
-           "bound_ms": bound}
-    print("path G step: channel_sums on the step's own maps (B=8, every "
-          "batch norm, forward and backward): " + json.dumps(row),
-          flush=True)
     if not worst <= SUMS_RTOL:
         fail(f"path G step: channel_sums relative error {worst} > "
              f"{SUMS_RTOL}")
-    del setup, calls, library_args
+    kernel_fn, library_fn = kernel_sums(mod), aten_sums(torch)
+
+    def replay(fn):
+        return lambda: [fn(a, b) for a, b in calls]
+
+    kernel = measure_sums(torch, kernel_fn, calls, floor)
+    library = measure_sums(torch, library_fn, calls)
+    row = {"calls": len(calls),
+           "widths": sorted({a.shape[1] for a, _ in calls}),
+           "dtypes": sorted({str(a.dtype) for a, _ in calls}),
+           "max_rel_err": worst, "max_abs_err": worst_abs,
+           # the step's calls in its order, on its tensors (a layer's x
+           # read by its forward and, later, its backward call)
+           "as_hooked_ms": time_cuda_graph(torch, replay(kernel_fn), 1),
+           "plain_ms": time_cuda(torch, replay(lambda a, b:
+                                               mod.channel_sums_plain(
+                                                   a, b, dim=1)), 5),
+           "library_as_hooked_ms": time_cuda_graph(torch, replay(library_fn),
+                                                   1),
+           "library_ms": library["ms"], "library_cold_ms": library["cold_ms"],
+           **{k: v for k, v in kernel.items() if k != "per_call"}}
+    print("path G step: channel_sums on the step's own maps (B=8, every "
+          "batch norm, forward and backward; ms in L2, cold_ms out of it): "
+          + json.dumps(row), flush=True)
+    for r in kernel["per_call"]:
+        print("path G step: channel_sums per call " + json.dumps(r),
+              flush=True)
+    del calls
     torch.cuda.empty_cache()
     return row
 
@@ -3249,11 +3613,19 @@ def main() -> int:
         start = time.perf_counter()
         return native.available(), time.perf_counter() - start
 
-    with ThreadPoolExecutor(len(names) + 1) as pool:  # one compiler a source
+    def build_floor():
+        start = time.perf_counter()
+        return launch_floor_kernel(torch), time.perf_counter() - start
+
+    # one compiler a source
+    with ThreadPoolExecutor(len(names) + 2) as pool:
         decoder = pool.submit(build_native)
+        empty = pool.submit(build_floor)
         took = dict(zip(names, pool.map(build, names)))
         native_built, took["native decoder (g++)"] = decoder.result()
-    print(f"build: {', '.join(names)} and the native decoder in "
+        floor, took["empty kernel"] = empty.result()
+    print(f"build: {', '.join(names)}, the empty kernel and the native "
+          f"decoder in "
           f"{time.perf_counter() - tic:.1f} s side by side; each: "
           + json.dumps(took) + f"; native decoder built: {native_built}",
           flush=True)
@@ -3263,12 +3635,13 @@ def main() -> int:
                 line.strip() for line in fh
                 if "registers" in line or "spill" in line), flush=True)
 
-    check_soft_dtw_ptxas()
+    for name in PTXAS_CLEAN:
+        check_ptxas_clean(name)
 
     device = torch.device("cuda")
     kernels = [check_aug_kernel(torch, device),
                *check_soft_dtw_kernels(torch, device),
-               check_channel_sums_kernel(torch, device),
+               check_channel_sums_kernel(torch, device, floor),
                *check_conv_kernel(torch, device)]
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3318,7 +3691,8 @@ def main() -> int:
         sums["path_g_launches_per_step"] = by_path[
             "path G, DUALVAR_BN_STATS=pallas"]["channel_sums"] / PATH_S_STEPS
         sums["path_g_step"] = check_sums_on_path_g(
-            torch, path_g_cfg(8, log_root), g_state)
+            torch, path_g_cfg(8, log_root), g_state, floor)
+        sums["profiler_kernels_a_call"] = len(check_sums_profiler(torch))
         aug = next(k for k in kernels if k["name"] == "aug_fused")
         aug["path_c"] = check_aug_classifier_shapes(torch, device)
         # the unfused path beside the kernel (path F): no launch of it
@@ -3346,6 +3720,8 @@ def main() -> int:
         time_train_steps(torch, path_c_cfg(log_root, 32, videos=32),
                          windows=3)
         time_train_steps(torch, path_g_cfg(8, log_root), windows=5)
+        with bn_stats_env(True):
+            time_train_steps(torch, path_g_cfg(8, log_root), windows=5)
         time_train_steps(torch, path_g_cfg(32, log_root, videos=32),
                          windows=3)
         check_f32_forward(torch, "paper_table1_k400",

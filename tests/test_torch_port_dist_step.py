@@ -22,6 +22,7 @@ and the same tolerances.
 """
 
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -122,8 +123,11 @@ def runs(tmp_path_factory):
               "block": torch.from_numpy(block),
               "moco_block": torch.from_numpy(moco_block),
               "perm": torch.from_numpy(PERM), "moco_k": K}
-    outs = launch_ranks("step", inputs,
-                        tmp_path_factory.mktemp("dist_step"))
+    directory = tmp_path_factory.mktemp("dist_step")
+    outs = launch_ranks("step", inputs, directory)
+    # the ranks' outputs are loaded: their files (about 0.85 GB) go now,
+    # not with pytest's basetemp three runs later
+    shutil.rmtree(directory, ignore_errors=True)
     return params, mparams, mstats, jax_out, outs
 
 
