@@ -64,6 +64,10 @@ class AugConfig:
     # Jitter that is not clip-consistent takes the unfused path ('on' then
     # raises)
     fused: str = "auto"
+    # the fused path's plane type inside the chain (the kernel's
+    # compute_dtype): 'float32', or 'bfloat16' (each plane op rounded where
+    # the JAX kernel's bfloat16 mode rounds it); no preset or flag sets it
+    fused_compute: str = "float32"
 
     @property
     def jitter_mode(self) -> str:
@@ -143,6 +147,16 @@ def _draw_clip_params(generator: torch.Generator, cfg: AugConfig, B: int,
             torch.stack([sigma, blur_on.float()], dim=-1))
 
 
+def _fused_compute(cfg: AugConfig) -> torch.dtype:
+    """``cfg.fused_compute`` as the kernel's ``compute_dtype``; an unknown
+    name raises ``ValueError`` (the JAX package would hand it to
+    ``jnp.dtype``)."""
+    if cfg.fused_compute not in ("float32", "bfloat16"):
+        raise ValueError("fused_compute must be float32/bfloat16, got "
+                         f"{cfg.fused_compute!r}")
+    return getattr(torch, cfg.fused_compute)
+
+
 def _crop_planar(frames_u8: torch.Tensor, crops: torch.Tensor, T: int,
                  d: int, flips: torch.Tensor | None = None) -> torch.Tensor:
     """(B, V*T, H0, W0, C) uint8 -> (B*V, C, T, d, d): each clip's own crop
@@ -201,7 +215,7 @@ def pretrain_batch_fused(generator: torch.Generator | None,
              factors.reshape(B * V, 4).to(dev, torch.float32).contiguous(),
              blurs.reshape(B * V, 2).to(dev, torch.float32).contiguous(),
              out_dtype=getattr(torch, cfg.out_dtype),
-             normalize=cfg.normalize)
+             compute_dtype=_fused_compute(cfg), normalize=cfg.normalize)
     return out.reshape(B, V, C, T, d, d).permute(0, 1, 3, 4, 5, 2)
 
 
@@ -476,7 +490,7 @@ def classifier_train_batch_fused(generator: torch.Generator | None,
     out = fn(planar, orders.to(dev, torch.int32).contiguous(),
              factors.to(dev, torch.float32).contiguous(), blurs,
              out_dtype=getattr(torch, cfg.out_dtype),
-             normalize=cfg.normalize)
+             compute_dtype=_fused_compute(cfg), normalize=cfg.normalize)
     return out.permute(0, 2, 3, 4, 1)
 
 

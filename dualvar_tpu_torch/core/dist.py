@@ -10,7 +10,10 @@ calls the collectives itself:
   statistics (``models/layers.py``);
 * the contrastive losses take their columns from the all-gathered global
   batch (``all_gather_with_grad``, ``models/ssl/losses.py``);
-* MoCo enqueues the all-gathered keys (``models/ssl/moco.py``);
+* MoCo enqueues the all-gathered keys (``models/ssl/moco.py``), and its
+  batch-shuffled key pass gathers the key views, takes rank 0's batch
+  permutation and averages the key encoder's running statistics over the
+  processes;
 * the gradient is averaged over the processes before the optimizer step
   (``average_gradients``), the logged metrics too (``mean_over_ranks``).
 
@@ -165,6 +168,13 @@ def all_reduce_(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """In place: ``t`` becomes rank ``src``'s."""
+    collectives["broadcast"] += 1
+    dist.broadcast(t, src)
+    return t
+
+
 def all_gather(t: torch.Tensor) -> torch.Tensor:
     """``t`` of every rank concatenated along dim 0 in rank order, no
     gradient. Every rank's ``t`` has the same shape."""
@@ -229,20 +239,27 @@ def _by_dtype(tensors):
     return groups.values()
 
 
+def sum_tensors_(tensors) -> None:
+    """Every tensor replaced by its sum over the ranks, in place: one flat
+    all-reduce a dtype. Without a group: nothing."""
+    if not active():
+        return
+    for group in _by_dtype(list(tensors)):
+        flat = all_reduce_(torch.cat([t.reshape(-1) for t in group]))
+        offset = 0
+        for t in group:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
 def average_gradients(params) -> None:
     """Every gradient replaced by its mean over the ranks: one flat
     all-reduce a dtype. Without a group: nothing."""
     if not active():
         return
     grads = [p.grad for p in params if p.grad is not None]
-    w = world_size()
-    for group in _by_dtype(grads):
-        flat = all_reduce_(torch.cat([g.reshape(-1) for g in group]))
-        flat.div_(w)
-        offset = 0
-        for g in group:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+    sum_tensors_(grads)
+    torch._foreach_div_(grads, world_size())
 
 
 def mean_over_ranks(values: dict[str, torch.Tensor]
@@ -288,9 +305,7 @@ def assert_replicas_equal(tensors, what: str) -> None:
     bad = 0
     for group in _by_dtype([t.detach() for t in tensors]):
         mine = torch.cat([t.reshape(-1) for t in group]).to(device)
-        ref = mine.clone()
-        collectives["broadcast"] += 1
-        dist.broadcast(ref, 0)
+        ref = broadcast_(mine.clone(), 0)
         bad += int(not torch.equal(mine, ref))
     flag = all_reduce_(torch.tensor([bad], dtype=torch.int64, device=device))
     if int(flag.item()):

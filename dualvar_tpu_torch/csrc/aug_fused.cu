@@ -7,6 +7,19 @@
 // separable 13-tap Gaussian blur with edge replication (W pass, then H pass);
 // ImageNet normalisation; cast to float32 or bfloat16.
 //
+// Two compute routes, as the JAX kernel's compute_dtype: float32 planes,
+// or bfloat16 planes (compute_bf16), where every plane value is a bfloat16
+// number and each op of the JAX kernel's bfloat16 mode is rounded where it
+// rounds: the u8 / 255 plane; each factor once an op (fac()); the blend's
+// x*f, other*(1-f), their sum; the gray's three products and two sums
+// (python-float weights, bfloat16 by JAX's weak typing); the contrast mean,
+// summed in float32 and rounded once; hue in float32 on the bfloat16
+// planes, its result rounded; the blur's float32 passes, rounded once; the
+// normalisation's product and sum. That route evaluates hue and the blur
+// op by op as the plain PyTorch version does on the card (true divisions,
+// no contracted multiply-adds), so the two differ only where the contrast
+// mean's float32 sum order or the blur's tap sum moves a rounding.
+//
 // Bound: bytes. Per clip the function must read 3*T*S*S bytes and write
 // 3*T*S*S*sizeof(out); the arithmetic (about 150 flops a pixel with hue and
 // blur) is far below the card's float32 rate at that traffic.
@@ -71,6 +84,51 @@ __device__ __forceinline__ float gray(float r, float g, float b) {
   return kGrayR * r + kGrayG * g + kGrayB * b;
 }
 
+// round to the nearest bfloat16 (ties to even), kept as a float
+__device__ __forceinline__ float bf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the route's rounding of a plane op's result: none on the float32 route
+template <bool kBf>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (kBf) {
+    return bf(x);
+  } else {
+    return x;
+  }
+}
+
+// A clip's factors as each route takes them: f as given (float32); on the
+// bfloat16 route fb = bf16(f) for brightness, contrast and saturation and
+// omf = bf16(1 - fb), as the JAX kernel's fac() and _blend make them
+struct Factors {
+  float f[4];
+  float fb[3];
+  float omf[3];
+};
+
+// blend with the factor of op k (0 brightness, 1 contrast, 2 saturation)
+template <bool kBf>
+__device__ __forceinline__ float blend_t(float x, float other,
+                                         const Factors& F, int k) {
+  if constexpr (kBf) {
+    return clip01(bf(bf(x * F.fb[k]) + bf(other * F.omf[k])));
+  } else {
+    return blend(x, other, F.f[k]);
+  }
+}
+
+template <bool kBf>
+__device__ __forceinline__ float gray_t(float r, float g, float b) {
+  if constexpr (kBf) {
+    return bf(bf(bf(bf(kGrayR) * r) + bf(bf(kGrayG) * g)) +
+              bf(bf(kGrayB) * b));
+  } else {
+    return gray(r, g, b);
+  }
+}
+
 // floored modulo by 1: the hue shift makes h + fh negative, where fmodf
 // would return a negative value
 __device__ __forceinline__ float mod1(float x) { return x - floorf(x); }
@@ -113,27 +171,71 @@ __device__ __forceinline__ void hue(float& r, float& g, float& b, float fh) {
   b = maxc - vs * clip01(fminf(k1, 4.0f - k1));
 }
 
+// hue on the bfloat16 route: the plain version's operations on the card
+// one by one (true divisions, the division by 6 a product with the float32
+// reciprocal as ATen's division by a scalar computes it, nothing
+// contracted), each rounded once; the caller rounds the result to bfloat16
+__device__ __forceinline__ void hue_rn(float& r, float& g, float& b,
+                                       float fh) {
+  const float maxc = fmaxf(fmaxf(r, g), b);
+  const float minc = fminf(fminf(r, g), b);
+  const bool eqc = maxc == minc;
+  const float cr = __fsub_rn(maxc, minc);
+  const float s = __fdiv_rn(cr, eqc ? 1.0f : maxc);
+  const float crd = eqc ? 1.0f : cr;
+  const float rc = __fdiv_rn(__fsub_rn(maxc, r), crd);
+  const float gc = __fdiv_rn(__fsub_rn(maxc, g), crd);
+  const float bc = __fdiv_rn(__fsub_rn(maxc, b), crd);
+  const float hr = (maxc == r) ? __fsub_rn(bc, gc) : 0.0f;
+  const float hg =
+      (maxc == g && maxc != r) ? __fsub_rn(__fadd_rn(2.0f, rc), bc) : 0.0f;
+  const float hb =
+      (maxc != g && maxc != r) ? __fsub_rn(__fadd_rn(4.0f, gc), rc) : 0.0f;
+  float h = mod1(__fadd_rn(
+      __fmul_rn(__fadd_rn(__fadd_rn(hr, hg), hb), 1.0f / 6.0f), 1.0f));
+  h = mod1(__fadd_rn(h, fh));
+  const float h6 = __fmul_rn(h, 6.0f);
+  const float vs = __fmul_rn(maxc, s);
+  const float k5 = mod6(__fadd_rn(5.0f, h6));
+  const float k3 = mod6(__fadd_rn(3.0f, h6));
+  const float k1 = mod6(__fadd_rn(1.0f, h6));
+  r = __fsub_rn(maxc,
+                __fmul_rn(vs, clip01(fminf(k5, __fsub_rn(4.0f, k5)))));
+  g = __fsub_rn(maxc,
+                __fmul_rn(vs, clip01(fminf(k3, __fsub_rn(4.0f, k3)))));
+  b = __fsub_rn(maxc,
+                __fmul_rn(vs, clip01(fminf(k1, __fsub_rn(4.0f, k1)))));
+}
+
 // One pointwise jitter op (0 brightness, 2 saturation, 3 hue) on the V
 // pixels of a unit: the op is decoded once a unit and the pixels' chains
 // are independent. Contrast (1) needs the frame mean: the caller applies it.
-template <int V>
-__device__ __forceinline__ void pointwise_op(int op, const float* f,
+template <int V, bool kBf>
+__device__ __forceinline__ void pointwise_op(int op, const Factors& F,
                                              float (&px)[3][V]) {
   if (op == 0) {
 #pragma unroll
     for (int i = 0; i < V; ++i)
 #pragma unroll
-      for (int c = 0; c < 3; ++c) px[c][i] = blend(px[c][i], 0.0f, f[0]);
+      for (int c = 0; c < 3; ++c) px[c][i] = blend_t<kBf>(px[c][i], 0.0f, F, 0);
   } else if (op == 2) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      const float gr = gray(px[0][i], px[1][i], px[2][i]);
+      const float gr = gray_t<kBf>(px[0][i], px[1][i], px[2][i]);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) px[c][i] = blend(px[c][i], gr, f[2]);
+      for (int c = 0; c < 3; ++c) px[c][i] = blend_t<kBf>(px[c][i], gr, F, 2);
     }
   } else if (op == 3) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) hue(px[0][i], px[1][i], px[2][i], f[3]);
+    for (int i = 0; i < V; ++i) {
+      if constexpr (kBf) {
+        hue_rn(px[0][i], px[1][i], px[2][i], F.f[3]);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) px[c][i] = bf(px[c][i]);
+      } else {
+        hue(px[0][i], px[1][i], px[2][i], F.f[3]);
+      }
+    }
   }
 }
 
@@ -230,11 +332,12 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, const float* v) {
 // r, g, b, which hold the W pass the cluster's blocks read for the blur's
 // H pass. kVec:
 // S % 4 == 0 and a 4-byte aligned input (4-pixel units, 16-byte float32
-// stores, float4 shared-memory traffic).
+// stores, float4 shared-memory traffic). kBf: the bfloat16 compute route
+// (see the top of the file).
 // 5 blocks an SM: the register cap this asks for (48, a few bytes spilled)
 // buys more resident warps than 64 registers at 4 blocks, which the
 // colour chain's latency needs more
-template <typename OutT, bool kVec>
+template <typename OutT, bool kVec, bool kBf>
 __global__ void __launch_bounds__(kThreads, 5)
 aug_band_kernel(const uint8_t* __restrict__ in,
                 const int32_t* __restrict__ orders,
@@ -263,11 +366,18 @@ aug_band_kernel(const uint8_t* __restrict__ in,
 
   // the op order packed 2 bits a slot: a register, not a local array
   int order = 0;
-  float f[4];
+  Factors f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     order |= (orders[n * 4 + k] & 3) << (2 * k);
-    f[k] = factors[n * 4 + k];
+    f.f[k] = factors[n * 4 + k];
+  }
+  if constexpr (kBf) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      f.fb[k] = bf(f.f[k]);
+      f.omf[k] = bf(1.0f - f.fb[k]);
+    }
   }
   const float sigma = blur[n * 2 + 0];
   const bool blur_on = blur[n * 2 + 1] > 0.0f;  // the same in the cluster
@@ -296,6 +406,14 @@ aug_band_kernel(const uint8_t* __restrict__ in,
     bias[1] = (float)(-0.456 / 0.224);
     bias[2] = (float)(-0.406 / 0.225);
   }
+  if constexpr (kBf) {
+    // python floats in the JAX kernel's bfloat16 ops: rounded once
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      scale[c] = bf(scale[c]);
+      bias[c] = bf(bias[c]);
+    }
+  }
 
   // phase 1: load, ops before contrast, stage, gray sum of the band
   const int upr = S / V;  // units a row
@@ -307,13 +425,19 @@ aug_band_kernel(const uint8_t* __restrict__ in,
 #pragma unroll
     for (int c = 0; c < 3; ++c)
       load_u8<V>(in + base[c] + (size_t)(y0 + r) * S + x0, px[c]);
+    if constexpr (kBf) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int i = 0; i < V; ++i) px[c][i] = bf(px[c][i]);
+    }
     for (int k = 0; k < c_slot; ++k)
-      pointwise_op<V>((order >> (2 * k)) & 3, f, px);
+      pointwise_op<V, kBf>((order >> (2 * k)) & 3, f, px);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) plane[c][r * S + x0 + i] = px[c][i];
-      gsum += gray(px[0][i], px[1][i], px[2][i]);
+      gsum += gray_t<kBf>(px[0][i], px[1][i], px[2][i]);
     }
   }
 #pragma unroll
@@ -341,7 +465,7 @@ aug_band_kernel(const uint8_t* __restrict__ in,
     for (int b = 0; b < nbands; ++b)
       total += __shfl_sync(0xffffffffu, mine, b);
     if (tid == 0) {
-      frame_mean = total * (1.0f / (float)P);
+      frame_mean = rnd<kBf>(total * (1.0f / (float)P));
       if (blur_on) {
         float ksum = 0.0f;
         for (int j = 0; j < kTaps; ++j) ksum += taps[j];
@@ -364,10 +488,10 @@ aug_band_kernel(const uint8_t* __restrict__ in,
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         px[c][i] = plane[c][r * S + x0 + i];
-        if (c_slot < 4) px[c][i] = blend(px[c][i], m, f[1]);
+        if (c_slot < 4) px[c][i] = blend_t<kBf>(px[c][i], m, f, 1);
       }
     for (int k = c_slot + 1; k < 4; ++k)
-      pointwise_op<V>((order >> (2 * k)) & 3, f, px);
+      pointwise_op<V, kBf>((order >> (2 * k)) & 3, f, px);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       if (blur_on) {
@@ -375,7 +499,9 @@ aug_band_kernel(const uint8_t* __restrict__ in,
         for (int i = 0; i < V; ++i) plane[c][r * S + x0 + i] = px[c][i];
       } else {
 #pragma unroll
-        for (int i = 0; i < V; ++i) px[c][i] = px[c][i] * scale[c] + bias[c];
+        for (int i = 0; i < V; ++i)
+          px[c][i] = kBf ? bf(bf(px[c][i] * scale[c]) + bias[c])
+                         : px[c][i] * scale[c] + bias[c];
         store_out<V>(out + base[c] + (size_t)(y0 + r) * S + x0, px[c]);
       }
     }
@@ -419,7 +545,13 @@ aug_band_kernel(const uint8_t* __restrict__ in,
           for (int e = 0; e < V; ++e) {
             acc[c][e] = 0.0f;
 #pragma unroll
-            for (int j = 0; j < kTaps; ++j) acc[c][e] += k[j] * v[e + j];
+            for (int j = 0; j < kTaps; ++j) {
+              if constexpr (kBf) {
+                acc[c][e] = __fadd_rn(acc[c][e], __fmul_rn(k[j], v[e + j]));
+              } else {
+                acc[c][e] += k[j] * v[e + j];
+              }
+            }
           }
         }
       }
@@ -456,18 +588,29 @@ aug_band_kernel(const uint8_t* __restrict__ in,
         for (int e = 0; e < V; ++e) acc[e] = 0.0f;
 #pragma unroll
         for (int j = 0; j < kTaps; ++j) {
+          float q[V];
           if constexpr (V == 4) {
-            const float4 q = ld_cluster4(src[j] + c * cstride);
-            acc[0] += k[j] * q.x;
-            acc[1] += k[j] * q.y;
-            acc[2] += k[j] * q.z;
-            acc[3] += k[j] * q.w;
+            const float4 q4 = ld_cluster4(src[j] + c * cstride);
+            q[0] = q4.x;
+            q[1] = q4.y;
+            q[2] = q4.z;
+            q[3] = q4.w;
           } else {
-            acc[0] += k[j] * ld_cluster(src[j] + c * cstride);
+            q[0] = ld_cluster(src[j] + c * cstride);
+          }
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            if constexpr (kBf) {
+              acc[e] = __fadd_rn(acc[e], __fmul_rn(k[j], q[e]));
+            } else {
+              acc[e] += k[j] * q[e];
+            }
           }
         }
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[e] = acc[e] * scale[c] + bias[c];
+        for (int e = 0; e < V; ++e)
+          acc[e] = kBf ? bf(bf(bf(acc[e]) * scale[c]) + bias[c])
+                       : acc[e] * scale[c] + bias[c];
         store_out<V>(out + base[c] + (size_t)(y0 + r) * S + x0, acc);
       }
     }
@@ -476,11 +619,11 @@ aug_band_kernel(const uint8_t* __restrict__ in,
   cluster_wait();  // nor does any other block read this one's
 }
 
-template <typename OutT, bool kVec>
+template <typename OutT, bool kVec, bool kBf>
 int launch(const void* in, const void* orders, const void* factors,
            const void* blur, void* out, int N, int T, int S, int band_rows,
            int nbands, int normalize, cudaStream_t stream) {
-  auto kernel = aug_band_kernel<OutT, kVec>;
+  auto kernel = aug_band_kernel<OutT, kVec, kBf>;
   const size_t smem = (size_t)3 * band_rows * S * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -505,16 +648,28 @@ int launch(const void* in, const void* orders, const void* factors,
   return (int)cudaGetLastError();
 }
 
-template <typename OutT>
-int launch_out(const void* in, const void* orders, const void* factors,
+template <typename OutT, bool kBf>
+int launch_vec(const void* in, const void* orders, const void* factors,
                const void* blur, void* out, int N, int T, int S,
                int band_rows, int nbands, int vec, int normalize,
                cudaStream_t stream) {
   if (vec)
-    return launch<OutT, true>(in, orders, factors, blur, out, N, T, S,
-                              band_rows, nbands, normalize, stream);
-  return launch<OutT, false>(in, orders, factors, blur, out, N, T, S,
-                             band_rows, nbands, normalize, stream);
+    return launch<OutT, true, kBf>(in, orders, factors, blur, out, N, T, S,
+                                   band_rows, nbands, normalize, stream);
+  return launch<OutT, false, kBf>(in, orders, factors, blur, out, N, T, S,
+                                  band_rows, nbands, normalize, stream);
+}
+
+template <typename OutT>
+int launch_out(const void* in, const void* orders, const void* factors,
+               const void* blur, void* out, int N, int T, int S,
+               int band_rows, int nbands, int vec, int compute_bf16,
+               int normalize, cudaStream_t stream) {
+  if (compute_bf16)
+    return launch_vec<OutT, true>(in, orders, factors, blur, out, N, T, S,
+                                  band_rows, nbands, vec, normalize, stream);
+  return launch_vec<OutT, false>(in, orders, factors, blur, out, N, T, S,
+                                 band_rows, nbands, vec, normalize, stream);
 }
 
 }  // namespace
@@ -523,19 +678,20 @@ int launch_out(const void* in, const void* orders, const void* factors,
 // (sigma, on>0); out (N,3,T,S,S) f32 (out_bf16 == 0) or bf16. All contiguous
 // device pointers. band_rows rows a block, nbands = ceil(S / band_rows) <= 8
 // blocks a frame (one cluster); vec != 0 when S % 4 == 0 and in is 4-byte
-// aligned (4-pixel units). Returns the launch's CUDA error (0 =
-// success).
+// aligned (4-pixel units); compute_bf16 != 0 takes the bfloat16 compute
+// route. Returns the launch's CUDA error (0 = success).
 extern "C" int aug_fused_launch(const void* in, const void* orders,
                                 const void* factors, const void* blur,
                                 void* out, int N, int T, int S, int band_rows,
                                 int nbands, int vec, int out_bf16,
-                                int normalize, void* stream) {
+                                int compute_bf16, int normalize,
+                                void* stream) {
   if (N <= 0 || T <= 0) return 0;
   if (out_bf16)
     return launch_out<__nv_bfloat16>(in, orders, factors, blur, out, N, T, S,
-                                     band_rows, nbands, vec, normalize,
-                                     (cudaStream_t)stream);
+                                     band_rows, nbands, vec, compute_bf16,
+                                     normalize, (cudaStream_t)stream);
   return launch_out<float>(in, orders, factors, blur, out, N, T, S,
-                           band_rows, nbands, vec, normalize,
+                           band_rows, nbands, vec, compute_bf16, normalize,
                            (cudaStream_t)stream);
 }

@@ -17,6 +17,9 @@ Under a process group (``core/dist.py``) every train-mode batch norm
 normalises with the global batch's statistics, as the JAX package's
 sharded step does: the one-pass route all-reduces its sums, the default
 route takes ``torch.nn.SyncBatchNorm``'s arithmetic (``_SyncBN``).
+Inside ``local_batch_norm()`` they normalise with this process's batch
+alone (MoCo's batch-shuffled key pass, whose groups are per-process batches
+by design).
 
 Under activation rematerialisation (``select_backbone(..., remat=True)``)
 the backward recomputes the backbone's forward in train mode. JAX's remat
@@ -274,6 +277,24 @@ def remat_contexts():
     return _remat_region(stats, False), _remat_region(stats, True)
 
 
+# whether train-mode batch norms use this process's batch alone under a
+# process group (``local_batch_norm``)
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def local_batch_norm():
+    """Inside the block every train-mode ``BatchNorm`` normalises with the
+    statistics of the batch it is given, under a process group too, and
+    calls no collective (the reference's per-GPU batch norm)."""
+    outer = getattr(_LOCAL, "on", False)
+    _LOCAL.on = True
+    try:
+        yield
+    finally:
+        _LOCAL.on = outer
+
+
 class BatchNorm(nn.Module):
     """Batch norm over ``(B, T, H, W)`` of a ``(B, C, T, H, W)`` map with the
     JAX package's running-statistics rule.
@@ -290,7 +311,8 @@ class BatchNorm(nn.Module):
     come from the channel-sum kernel. Under a process group the statistics
     are the global batch's: the one-pass route adds its sums over the
     ranks, the default route takes ``_SyncBN`` in place of ATen's batch
-    norm; without a group neither issues a collective. The fold is the
+    norm; without a group, or inside ``local_batch_norm()``, neither
+    calls a collective. The fold is the
     same on every path.
 
     Inside a rematerialised backbone the recomputation takes the first
@@ -321,7 +343,7 @@ class BatchNorm(nn.Module):
             saved = record.saved[record.next]
             record.next += 1
         stat = self.running_var.dtype
-        synced = dist.active()
+        synced = dist.active() and not getattr(_LOCAL, "on", False)
         if use_kernel_stats():
             y, mean, var = _OnePassBN.apply(x, self.weight, self.bias,
                                             self.eps, synced, saved)

@@ -29,7 +29,13 @@ queues as they were *before* this step's keys were written.
 
 Random decisions have explicit seams for the tests: ``perm`` (segment
 shuffle) and ``bn_perm`` (the batch permutation of the BN-shuffle mode);
-without them they are drawn from the ``generator`` handed in.
+without them they are drawn from the ``generator`` handed in (``bn_perm``
+by rank 0 under a process group, and broadcast).
+
+The BN-shuffle mode (``shuffle_bn_groups`` > 0, the reference's
+``_batch_shuffle_ddp`` / ``_batch_unshuffle_ddp``) computes the JAX
+package's grouped key pass on the global batch; under a process group each
+process encodes its share of the groups (``shuffled_key_encode``).
 
 ``nonlinear=False`` drops the clip heads: the clip embedding is the
 l2-normalised pooled feature, and the clip queue is as wide as the
@@ -52,7 +58,7 @@ from torch import nn
 from ...core import dist
 from ..backbones import select_backbone
 from ..heads import MLPHead
-from ..layers import global_avg_pool3d, l2_normalize
+from ..layers import global_avg_pool3d, l2_normalize, local_batch_norm
 from .losses import (moco_contrast_loss, moco_tc_contrast_loss,
                      shuffle_rank_loss)
 from .simclr import (apply_segment_perm, calibrate_shuffled, planar_views,
@@ -143,33 +149,66 @@ def dequeue_and_enqueue(queue: torch.Tensor, ptr: torch.Tensor,
 def shuffled_key_encode(encoder: MoCoEncoder, x2: torch.Tensor, groups: int,
                         bn_perm: torch.Tensor):
     """BN batch-shuffle parity mode (reference moco.py:128-173): permute the
-    key batch with ``bn_perm``, split it into ``groups`` device-sized groups,
-    run the key encoder on each group alone (BN reduces within the group
-    only, per-GPU BN semantics), invert the permutation.
+    global key batch with ``bn_perm``, split it into ``groups`` device-sized
+    groups, run the key encoder on each group alone (BN reduces within the
+    group only, per-GPU BN semantics), invert the permutation. Every group
+    starts from the same running statistics and the new running statistics
+    are the mean over the groups, as in the JAX package.
 
-    Every group starts from the same running statistics and the new running
-    statistics are the mean over groups, as in the JAX package."""
+    Without a process group ``x2`` is the global batch. Under one (world
+    size 1 too) each process holds B rows of the global W*B, as the
+    reference's ``_batch_shuffle_ddp``: the key views are all-gathered,
+    process r encodes groups ``r*groups/W`` to ``(r+1)*groups/W - 1`` of
+    the permuted batch (``groups`` must be a multiple of W) with its batch
+    norms local (``local_batch_norm``), the running statistics' sums are
+    added over the processes (one all-reduce a dtype), and the keys and
+    series of every process are gathered, unpermuted, and this process's
+    B rows kept. ``bn_perm`` is the global permutation, the same on every
+    process. Returns (keys, series or None) of this process's rows."""
+    world, rank = dist.world_size(), dist.rank()
+    if groups % world != 0:
+        raise ValueError(
+            f"moco_shuffle_bn={groups} groups cannot be shared by {world} "
+            "processes: it must be a multiple of the world size")
     B = x2.shape[0]
-    if B % groups != 0:
-        raise ValueError(f"batch {B} is not divisible into {groups} groups")
+    x_all = dist.all_gather(x2) if dist.active() else x2
+    if x_all.shape[0] % groups != 0:
+        raise ValueError(f"batch {x_all.shape[0]} is not divisible into "
+                         f"{groups} groups")
     bn_perm = bn_perm.to(x2.device).long()
-    chunks = x2[bn_perm].chunk(groups)
+    per = groups // world
+    chunks = x_all[bn_perm].chunk(groups)[rank * per:(rank + 1) * per]
     buffers = list(encoder.buffers())  # the BN running statistics
     start = [b.clone() for b in buffers]
     sums = [torch.zeros_like(b) for b in buffers]
     keys, series = [], []
-    for chunk in chunks:
-        for b, s in zip(buffers, start):
-            b.copy_(s)
-        k, s = encoder(chunk)
-        keys.append(k)
-        series.append(s)
-        torch._foreach_add_(sums, buffers)
+    with local_batch_norm():
+        for chunk in chunks:
+            for b, s in zip(buffers, start):
+                b.copy_(s)
+            k, s = encoder(chunk)
+            keys.append(k)
+            series.append(s)
+            torch._foreach_add_(sums, buffers)
+    dist.sum_tensors_(sums)
     for b, s in zip(buffers, sums):
         b.copy_(s / groups)
+    k = torch.cat(keys)
+    s = torch.cat(series) if series[0] is not None else None
+    if dist.active():
+        both = k if s is None else torch.cat(
+            [k, s.reshape(k.shape[0], -1)], dim=1)
+        both = dist.all_gather(both)
+        k = both[:, :k.shape[1]]
+        if s is not None:
+            s = both[:, k.shape[1]:].reshape(-1, *s.shape[1:])
     inv = bn_perm.argsort()
-    k = torch.cat(keys)[inv]
-    s = torch.cat(series)[inv] if series[0] is not None else None
+    k = k[inv]
+    s = s[inv] if s is not None else None
+    if dist.active():
+        rows = slice(rank * B, (rank + 1) * B)
+        k = k[rows]
+        s = s[rows] if s is not None else None
     return k, s
 
 
@@ -222,15 +261,27 @@ class MoCo(nn.Module):
             momentum_update(self.encoder_q, self.encoder_k, self.m)
             if not self.shuffle_bn_groups:
                 return self.encoder_k(x2)
-            if dist.world_size() > 1:
-                raise NotImplementedError(
-                    "moco_shuffle_bn > 0 across processes (the reference's "
-                    "_batch_shuffle_ddp) is not ported (ROADMAP.md A.10)")
             if bn_perm is None:
-                bn_perm = torch.randperm(x2.shape[0], generator=generator,
-                                         device=generator.device)
+                bn_perm = self.draw_bn_perm(x2, generator)
             return shuffled_key_encode(self.encoder_k, x2,
                                        self.shuffle_bn_groups, bn_perm)
+
+    @staticmethod
+    def draw_bn_perm(x2: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:
+        """The BN-shuffle mode's permutation of the global key batch:
+        drawn from ``generator``; under a process group by rank 0 alone and
+        broadcast (the processes' generators differ), so that rank 0 draws
+        what a run of one process draws."""
+        n = x2.shape[0] * dist.world_size()
+        if dist.rank() == 0:
+            perm = torch.randperm(n, generator=generator,
+                                  device=generator.device).to(x2.device)
+        else:
+            perm = torch.empty(n, dtype=torch.long, device=x2.device)
+        if dist.active():
+            dist.broadcast_(perm, 0)
+        return perm
 
     def enqueue(self, k: torch.Tensor, series_k: torch.Tensor | None) -> None:
         """Write this step's keys of every rank (one all-gather of both) into

@@ -174,9 +174,8 @@ def test_aug_fused_wrapper_rejects_bad_arguments():
         aug_fused(clips[:, :2], orders, factors, blur)
     with pytest.raises(TypeError, match="out_dtype"):
         aug_fused(clips, orders, factors, blur, out_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="bfloat16 compute"):
-        aug_fused(clips, orders, factors, blur,
-                  compute_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="compute_dtype"):
+        aug_fused(clips, orders, factors, blur, compute_dtype=torch.float16)
 
 
 def _jax_fused_batch(frames, crops, orders, factors, blurs, cfg):

@@ -12,7 +12,9 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "dualvar_tpu")
+# the JAX package, its dependencies, and the scripts beside it (which
+# import the JAX package)
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "dualvar_tpu", "scripts")
 
 
 def _run(code, **kw):
@@ -55,6 +57,7 @@ print("\\n".join(names))
             "dualvar_tpu_torch.native",
             "dualvar_tpu_torch.data.prep.write_csv",
             "dualvar_tpu_torch.data.prep.extract_frames",
+            "dualvar_tpu_torch.tools.learning_check",
             "dualvar_tpu_torch.train.pretrain"} <= set(names)
     # the kernels' sources are data beside the package, not modules of it
     assert not any("csrc" in name for name in names)

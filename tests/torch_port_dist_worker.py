@@ -108,6 +108,65 @@ def _moco(inp, rank, world):
                                        "encoder_k."))}}
 
 
+def case_shuffle_bn(inp, rank, world):
+    """MoCo steps in the BN-shuffle mode on the rank's rows, one a
+    configuration (naked or TimeSeriesV4, a number of groups), with the
+    global batch permutation given: metrics (over the ranks), the query
+    gradients (averaged over the ranks), the state after the step (queues,
+    pointer, key encoder), the collectives of the step. Then the
+    permutation as the ranks draw it from their own generators, and the
+    refusal of a number of groups the ranks cannot share."""
+    import dataclasses
+
+    from dualvar_tpu_torch.core import dist
+    from dualvar_tpu_torch.core.config import ModelConfig
+    from dualvar_tpu_torch.models.ssl.moco import MoCo
+    from dualvar_tpu_torch.train.pretrain import compute_metrics
+    from dualvar_tpu_torch.train.tasks import make_task, total_loss
+
+    os.environ["DUALVAR_BN_STATS"] = "xla"
+    out = {}
+    for name, case in inp["cases"].items():
+        cfg = ModelConfig(net="r3d", model=case["model"], dtype="float32",
+                          moco_k=inp["moco_k"], moco_m=inp["moco_m"],
+                          mode="clip-sr-tc", moco_shuffle_bn=case["groups"])
+        task = make_task(cfg)
+        model = task.model
+        model.load_state_dict(case["state"])
+        model.train()
+        model.encoder_q.backbone.double()
+        model.encoder_k.backbone.double()
+        dist.collectives.clear()
+        perm = None if case["perm"] is None else _local(case["perm"], rank,
+                                                        world)
+        ret = task.forward(_local(case["block"], rank, world), perm=perm,
+                           bn_perm=case["bn_perm"])
+        total_loss(ret).backward()
+        dist.average_gradients(task.parameters())
+        collectives = dict(dist.collectives)
+        out[name] = {
+            "metrics": compute_metrics(ret),
+            "grads": {k: p.grad for k, p in
+                      model.encoder_q.named_parameters()},
+            "state": {k: v for k, v in model.state_dict().items()
+                      if k.startswith(("queue", "series_queue",
+                                       "encoder_k."))},
+            "collectives": collectives}
+    x2 = torch.zeros(inp["rows"], 1)
+    gen = torch.Generator().manual_seed(inp["seed"] + rank)
+    out["drawn_bn_perm"] = MoCo.draw_bn_perm(x2, gen)
+    bad = make_task(dataclasses.replace(
+        ModelConfig(net="r3d", model="moco_naked", dtype="float32",
+                    moco_k=inp["moco_k"]), moco_shuffle_bn=3))
+    bad.model.train()
+    try:
+        bad.forward(_local(inp["cases"]["naked_g2"]["block"], rank, world)
+                    .float(), generator=torch.Generator().manual_seed(rank))
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out
+
+
 def case_protocols(inp, rank, world):
     from dualvar_tpu_torch.train import classifier as TC
 
