@@ -56,6 +56,16 @@ Phases, each fatal on failure (non-zero exit):
      protocol (center, five and ten crop, temporal ten-clip, retrieval)
      from the finetuned checkpoint; ``aug_fused`` with blur off at N=4 and
      N=32 against its plain version and timed out of L2;
+   - path P, the paper's experiment chains: each chain of
+     ``scripts/paper_torch/`` (``paper_table1_k400``,
+     ``paper_table2_moco_r21d``, ``paper_table2_re_simclr_r21d``) recorded
+     from its ``run.sh`` with ``DATA_ROOT``, ``DB_PATH`` and ``EXP_NAME``
+     unset and replayed in this process (``tools/paper_chain.py``) with
+     ``--synthetic 1 --epochs 1 --max_steps 2 --print_freq 1``: the
+     pretrain's losses and checkpoint, each finetune's graft of that
+     checkpoint (bitwise), each temporal ten-clip test run on the state its
+     finetune saved (bitwise), retrieval's dumps and R@k, ``aug_fused``
+     once a train step and no other kernel; each stage's wall time;
    - path G: preset ``s3dg_k400`` (SimCLR TimeSeriesV4 on S3D-G), two
      epochs of three steps saved through the checkpoint store, then
      ``--resume auto`` for a third: the state restored on the card against
@@ -2523,11 +2533,12 @@ def path_c_cfg(log_root: str, batch_size: int = 4, train_what: str = "ft",
             name_prefix=f"chip_smoke_{train_what}_b{batch_size}"))
 
 
-def check_graft(torch, cfg) -> dict:
+def check_graft(torch, cfg, label: str = "path C graft") -> dict:
     """The graft of the pretrain checkpoint ``cfg.run.pretrain`` into a fresh
     classifier: every ``backbone.*`` entry loaded from the checkpoint's
-    backbone, nothing unused, ``final_fc`` kept at its init. Returns the
-    grafted state_dict."""
+    backbone (SimCLR's ``backbone.*``, MoCo's ``encoder_q.backbone.*``),
+    nothing unused, ``final_fc`` kept at its init. Returns the grafted
+    state_dict."""
     from dualvar_tpu_torch.core.checkpoint import (load_pretrained_backbone,
                                                    load_state_dict,
                                                    pretrain_backbone)
@@ -2540,16 +2551,16 @@ def check_graft(torch, cfg) -> dict:
     backbone = [k for k in fresh if k.startswith("backbone.")]
     if (sorted(report["loaded"]) != sorted(backbone)
             or report["missing_in_src"] or report["unused_src"]):
-        fail(f"path C graft: {len(report['loaded'])} of {len(backbone)} "
+        fail(f"{label}: {len(report['loaded'])} of {len(backbone)} "
              f"backbone entries loaded, missing {report['missing_in_src'][:4]}"
              f", unused {report['unused_src'][:4]}")
     for key in backbone:
         if not torch.equal(state[key], source[key[len("backbone."):]]):
-            fail(f"path C graft: {key} is not the checkpoint's")
+            fail(f"{label}: {key} is not the checkpoint's")
     for key in (k for k in fresh if not k.startswith("backbone.")):
         if not torch.equal(state[key], fresh[key]):
-            fail(f"path C graft: {key} did not keep its init")
-    print(f"path C graft: {len(backbone)} backbone entries loaded from "
+            fail(f"{label}: {key} did not keep its init")
+    print(f"{label}: {len(backbone)} backbone entries loaded from "
           f"{cfg.run.pretrain}, final_fc kept at init", flush=True)
     return state
 
@@ -2736,6 +2747,187 @@ def check_f32_classifier(torch, cfg, state: dict) -> None:
         fail("f32 check, path C: the card's forward is not finite")
     if not max(errs) <= CLF_F32_ATOL:
         fail("f32 check, path C: card and CPU forwards disagree")
+
+
+# --------------------------------------------------------------------------
+# path P: the paper's experiment chains (scripts/paper_torch/)
+# --------------------------------------------------------------------------
+
+# appended to every stage of a chain: the presets' own widths, batches and
+# clips on synthetic frames, two train steps each logged
+PATH_P_ARGV = ("--synthetic", "1", "--epochs", "1", "--max_steps", "2",
+               "--print_freq", "1")
+PATH_P_STEPS = 2
+RETRIEVAL_DUMPS = tuple(
+    f"ucf101_{split}_{what}" for split in ("test", "train")
+    for what in ("feature.npy", "per_feature.npy", "label.npy",
+                 "vname.json")) + ("ucf101_sim.npy", "retrieval.json")
+
+
+@contextlib.contextmanager
+def tested_states():
+    """Yields a dict that gets, by ``--resume``, the classifier's state_dict
+    as each test protocol loaded it (``classifier._load_test_state``)."""
+    from dualvar_tpu_torch.train import classifier as clf
+
+    load, states = clf._load_test_state, {}
+
+    def keep(cfg, model, logger):
+        load(cfg, model, logger)
+        if cfg.run.resume:
+            states[cfg.run.resume] = {k: v.detach().clone()
+                                      for k, v in model.state_dict().items()}
+
+    clf._load_test_state = keep
+    try:
+        yield states
+    finally:
+        clf._load_test_state = load
+
+
+# the kinds of a chain's stages, in run.sh's order
+CHAIN_STAGES = ("pretrain", "finetune", "test", "finetune", "test",
+                "retrieval")
+
+
+def stage_kind(stage) -> str:
+    """pretrain, finetune, test (temporal ten-clip) or retrieval."""
+    if stage.module.endswith(".pretrain"):
+        return "pretrain"
+    if "--test" not in stage.argv:
+        return "finetune"
+    test = stage.argv[stage.argv.index("--test") + 1]
+    return {"temporal_ten_clip": "test", "retrieval": "retrieval"}[test]
+
+
+def saved_checkpoint(torch, label: str, stage) -> dict:
+    """The newest checkpoint of the stage's store, which must hold
+    ``PATH_P_STEPS`` steps and finite entries, and have been logged."""
+    from dualvar_tpu_torch.core.checkpoint import checkpoint_file
+
+    if not any(line.startswith("saved checkpoint epoch 0")
+               for line in stage.log):
+        fail(f"{label}: no 'saved checkpoint' in its log")
+    ckpt = torch.load(checkpoint_file(os.path.join(stage.directory, "model")),
+                      map_location="cpu")
+    if ckpt["iteration"] != PATH_P_STEPS:
+        fail(f"{label}: checkpoint iteration {ckpt['iteration']}")
+    for key, val in ckpt["state_dict"].items():
+        if not torch.isfinite(val).all():
+            fail(f"{label}: {key} is not finite in its checkpoint")
+    return ckpt["state_dict"]
+
+
+def check_chain_stage(torch, label: str, stage, cwd: str, earlier: dict,
+                      tested: dict) -> None:
+    """One replayed stage of a chain against what it must show; ``earlier``:
+    the chain's pretrain stage and its finetunes by fold."""
+    from dualvar_tpu_torch.train.classifier import set_path
+
+    kind = stage_kind(stage)
+    want = expected_launches(aug_fused=PATH_P_STEPS) if kind in (
+        "pretrain", "finetune") else expected_launches()
+    if stage.launches != want:
+        fail(f"{label}: launches {stage.launches}, expected {want}")
+    run = stage.config.run
+    if kind == "pretrain":
+        for key in TSV4_LOSSES + ("total_loss",):
+            if not math.isfinite(stage.result.get(key, math.nan)):
+                fail(f"{label}: {key} missing or not finite: {stage.result}")
+        saved_checkpoint(torch, label, stage)
+        return
+    fold = os.path.basename(set_path(stage.config, create=False))
+    read = run.resume if kind == "test" else run.pretrain
+    source = earlier["finetune", fold] if kind == "test" else \
+        earlier["pretrain"]
+    if os.path.join(cwd, read) != os.path.join(source.directory, "model"):
+        fail(f"{label}: reads {read}, not {source.directory}/model")
+    if kind == "finetune":
+        if f"=> loaded pretrained checkpoint '{read}'" not in stage.log:
+            fail(f"{label}: no graft of {read} in its log")
+        check_graft(torch, dataclasses.replace(stage.config, run=(
+            dataclasses.replace(run, pretrain=os.path.join(cwd, read)))),
+            f"{label}, graft")
+        for key in CLASSIFIER_METRICS:
+            if not math.isfinite(stage.result.get(key, math.nan)):
+                fail(f"{label}: {key} missing or not finite: {stage.result}")
+        saved_checkpoint(torch, label, stage)
+    elif kind == "test":
+        if f"=> loaded test checkpoint '{read}'" not in stage.log:
+            fail(f"{label}: no test checkpoint {read} in its log")
+        saved = saved_checkpoint(torch, f"{label}, its finetune", source)
+        ran = tested.get(read, {})
+        if set(ran) != set(saved) or not all(
+                torch.equal(ran[k], saved[k]) for k in saved):
+            fail(f"{label}: the state tested is not the finetune's saved "
+                 "state bitwise")
+        if not 0.0 <= stage.result["top1"] <= 1.0:
+            fail(f"{label}: top1 {stage.result}")
+    else:
+        values = list(stage.result.values())
+        if len(values) != 5 or not all(
+                math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+            fail(f"{label}: R@k {stage.result}")
+        feat = os.path.join(stage.directory, stage.config.dirname)
+        missing = [f for f in RETRIEVAL_DUMPS
+                   if not os.path.exists(os.path.join(feat, f))]
+        if missing:
+            fail(f"{label}: no {missing} under {feat}")
+
+
+def run_path_p(torch, log_root: str) -> dict:
+    """Path P: each chain of ``scripts/paper_torch/`` recorded from its
+    ``run.sh`` with ``DATA_ROOT``, ``DB_PATH`` and ``EXP_NAME`` unset (what
+    the JAX chains cannot run) and replayed in this process in a fresh
+    directory (``tools/paper_chain.py``) with ``PATH_P_ARGV``: pretrain,
+    finetune and temporal ten-clip test on UCF101 and on HMDB51, retrieval.
+    Every stage is held to ``check_chain_stage``; ``aug_fused`` launches
+    once a train step, ``PATH_P_STEPS`` in the pretrain and in each
+    finetune, and no kernel in a test. Returns each chain's counts."""
+    from dualvar_tpu_torch.tools import paper_chain as PC
+
+    by_run, start = {}, time.perf_counter()
+    for chain in PC.CHAINS:
+        stages = PC.chain_commands(chain)
+        cwd = os.path.join(log_root, "path_p", chain)
+        os.makedirs(cwd)
+        counters = kernel_counters()
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        tic = time.perf_counter()
+        with tested_states() as tested:
+            done = PC.run_chain(stages, PATH_P_ARGV, cwd, counters)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - tic
+        launches = {name: w.launches for name, w in counters.items()}
+        kinds = tuple(stage_kind(s) for s in done)
+        if kinds != CHAIN_STAGES:
+            fail(f"path P, {chain}: stages {kinds}, not {CHAIN_STAGES}")
+        earlier = {}
+        for stage, kind in zip(done, CHAIN_STAGES):
+            name = PC.stage_name(stage.module, stage.argv)
+            label = f"path P, {chain}: {name}"
+            check_chain_stage(torch, label, stage, cwd, earlier, tested)
+            if kind == "pretrain":
+                earlier["pretrain"] = stage
+            elif kind == "finetune":
+                earlier["finetune", os.path.basename(stage.directory)] = stage
+            shown = {k: v for k, v in stage.result.items()
+                     if k != "classwise"}
+            print(f"{label}: {stage.seconds:.2f} s, launches="
+                  + json.dumps({k: v for k, v in stage.launches.items()
+                                if v}) + ", " + json.dumps(shown),
+                  flush=True)
+        want = expected_launches(aug_fused=PATH_P_STEPS * sum(
+            kind in ("pretrain", "finetune") for kind in CHAIN_STAGES))
+        if launches != want:
+            fail(f"path P, {chain}: launches {launches}, expected {want}")
+        print(f"path P, {chain}: {len(done)} stages in {took:.2f} s, "
+              f"launches=" + json.dumps(launches), flush=True)
+        by_run[f"path P, {chain}"] = launches
+    print(f"path P: {len(PC.CHAINS)} chains in "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
+    return by_run
 
 
 # path D: data parallel across processes. The card is one, so the group
@@ -4045,6 +4237,7 @@ def main() -> int:
             set_path(smoke_cfg("paper_table1_k400", 8, log_root)), "model")
         clf_state, path_c = run_path_c(torch, log_root, main_ckpt)
         by_path.update(path_c)
+        by_path.update(run_path_p(torch, log_root))
         g_state, path_g = run_path_g(torch, log_root)
         by_path.update(path_g)
         by_path.update(run_path_m_resume(torch, log_root))

@@ -666,11 +666,12 @@ def test_retrieval(cfg: ClassifierConfig,
     return out
 
 
-def main(argv: list[str] | None = None):
-    """Flag surface of the JAX classifier CLI (reference parser
-    classifier.py:38-108)
-    plus ``--device`` and ``--synthetic``; a preset supplies the defaults,
-    every flag overrides it."""
+def config_from_argv(argv: list[str] | None = None
+                     ) -> tuple[ClassifierConfig, argparse.Namespace]:
+    """The configuration a command line selects, and its parsed flags. The
+    flag surface is the JAX classifier CLI's (reference parser
+    classifier.py:38-108) plus ``--device`` and ``--synthetic``; a preset
+    supplies the defaults, every flag overrides it."""
     p = argparse.ArgumentParser()
     p.add_argument("--preset", default="smoke", choices=sorted(CLASSIFIER_PRESETS))
     p.add_argument("--test", default="",
@@ -800,16 +801,21 @@ def main(argv: list[str] | None = None):
                  "dropout", "dirname"):
         if getattr(args, name) is not None:
             cfg = dataclasses.replace(cfg, **{name: getattr(args, name)})
+    return cfg, args
 
+
+def main(argv: list[str] | None = None):
+    """Runs a command line: returns what the test protocol of ``--test``,
+    or ``train``, returns."""
+    cfg, args = config_from_argv(argv)
     try:
         if args.test == "retrieval":
-            test_retrieval(cfg, args.device)
-        elif args.test == "temporal_ten_clip":
-            test_temporal_tenclip(cfg, args.device)
-        elif args.test in ("center", "five", "ten"):
-            test_multicrop(cfg, args.test, args.device)
-        else:
-            train(cfg, max_steps=args.max_steps, device=args.device)
+            return test_retrieval(cfg, args.device)
+        if args.test == "temporal_ten_clip":
+            return test_temporal_tenclip(cfg, args.device)
+        if args.test in ("center", "five", "ten"):
+            return test_multicrop(cfg, args.test, args.device)
+        return train(cfg, max_steps=args.max_steps, device=args.device)
     finally:
         dist.destroy()
 

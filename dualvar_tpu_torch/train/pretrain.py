@@ -653,8 +653,10 @@ def _override(group, args, names):
     return dataclasses.replace(group, **kw) if kw else group
 
 
-def main(argv: list[str] | None = None):
-    """Flag surface mirrors the JAX trainer's (reference parser
+def config_from_argv(argv: list[str] | None = None
+                     ) -> tuple[PretrainConfig, argparse.Namespace]:
+    """The configuration a command line selects, and its parsed flags. The
+    flag surface mirrors the JAX trainer's (reference parser
     pretrain.py:90-164), cut to what this package supports; a preset
     supplies the defaults, every flag overrides it."""
     p = argparse.ArgumentParser()
@@ -788,12 +790,18 @@ def main(argv: list[str] | None = None):
     if args.async_ckpt is not None:
         cfg = cfg.replace(run=dataclasses.replace(
             cfg.run, async_ckpt=bool(args.async_ckpt)))
+    return cfg, args
+
+
+def main(argv: list[str] | None = None):
+    """Runs a command line: returns what ``train`` returns (the written
+    files' paths under ``--visualize``)."""
+    cfg, args = config_from_argv(argv)
     if args.visualize:
-        visualize(cfg, device=args.device)
-        return
+        return visualize(cfg, device=args.device)
     try:
-        train(cfg, max_steps=args.max_steps, device=args.device,
-              profile_steps=args.profile_steps)
+        return train(cfg, max_steps=args.max_steps, device=args.device,
+                     profile_steps=args.profile_steps)
     finally:
         dist.destroy()
 

@@ -1,0 +1,6 @@
+#!/bin/sh
+# port of scripts/paper/paper_table2_moco_r21d/test.sh (temporal 10-clip protocol)
+. "$(dirname "$0")/../common.sh"
+python -m dualvar_tpu_torch.train.classifier --preset paper_table1_ucf_ft \
+  --prefix paper_table2_moco_r21d --name_prefix "$EXP_NAME" \
+  --test temporal_ten_clip --resume "log/paper_table2_moco_r21d/ft/$EXP_NAME/ucf/model" $DATA_ARGS

@@ -1,7 +1,7 @@
 """The port's classifier from the command line, on the CPU: a short
-finetune run, then retrieval from the checkpoint it wrote; and the flags and
-arguments that need what is not ported, refused with
-``NotImplementedError``."""
+finetune run, then retrieval from the checkpoint it wrote; the flags that
+were refused before the port had what they need, each reaching the
+config; a ``--resume`` without a checkpoint, and a missing card, refused."""
 
 import dataclasses
 import json
@@ -47,7 +47,7 @@ def test_cli_trains_and_tests_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("args", [
     ("--optim", "adam"), ("--remat",), ("--fast_decode", "1")])
-def test_cli_refuses_what_is_not_ported(args, monkeypatch):
+def test_cli_flags_reach_the_config(args, monkeypatch):
     """The three flags were refused before the port had AdamW,
     rematerialisation and the native decoder; now each reaches the config
     ``train`` gets (and is at its default without the flag)."""

@@ -43,7 +43,7 @@ def test_port_flags_are_the_jax_flags(module, only_jax, only_port):
 
 
 @pytest.mark.parametrize("args", [("--remat",), ("--fast_decode", "1")])
-def test_pretrain_refuses_what_is_not_ported(args, monkeypatch):
+def test_pretrain_flags_reach_the_config(args, monkeypatch):
     """Both flags were refused before the port had rematerialisation and
     the native decoder; now each reaches the config ``train`` gets, and is
     off without the flag."""
