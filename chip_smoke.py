@@ -143,6 +143,16 @@ Phases, each fatal on failure (non-zero exit):
      tree written from a seed), each below its chance plateau by its
      margin (above 0.6 top-1 for the classifier), the loss every 20
      steps;
+   - path K, the soaks (``tools/soak.py``, ``tools/moco_soak.py``): the
+     R3D-18 SimCLR step at B=128 for ``SOAK_MINUTES`` and the
+     ``paper_table2_moco_r21d`` step (MoCo-TSV4, R(2+1)D-18, K=16384) at
+     B=32 for ``MOCO_SOAK_MINUTES``, at least one wrap of the queue: every
+     chain's loss finite, the async store's mid-run checkpoint restored
+     twice and replayed 3 steps bitwise as each other and as the live
+     steps after the save (deterministic cuDNN), the queue pointer, the
+     queue rows' norms within 1e-3, the key encoder finite, ``aug_fused``
+     once a step and no other kernel; both records, clips/s by chain, the
+     save's cost and the device memory;
    then step times at B=8 and B=32 (MoCo in ``clip-sr-tc`` and
    ``clip-sr-dtw``, at n_series 2 and 16: the difference is what soft-DTW
    and its cost tensor take), of path R at B=8, 32 and 128 with the
@@ -3308,6 +3318,88 @@ def run_learning(torch, log_root: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# path K: the soaks
+# --------------------------------------------------------------------------
+
+# the SimCLR soak's length, and the MoCo soak's: at least one wrap of the
+# K=16384 queue is 512 steps at B=32, 153 s at the 298 ms a step measured
+# on an H100, so 3 minutes wrap it once with 18 % to spare
+SOAK_MINUTES = 1.0
+MOCO_SOAK_MINUTES = 3.0
+# a queue row's distance from unit norm, float32 keys
+QUEUE_NORM_TOL = 1e-3
+
+
+def check_soak(label: str, record: dict, details: dict) -> None:
+    """What fails a soak: a non-finite loss, replays that are not bitwise
+    each other and the live steps after the save."""
+    losses = [record["first_loss"], record["last_loss"],
+              *(o if isinstance(o, float) else o[0]
+                for o in details["live"])]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: a loss is not finite: {losses}")
+    if not details["replays_agree"]:
+        fail(f"{label}: the two replays of the checkpoint differ: "
+             f"{details['replays']}")
+    if not details["replays_match_live"]:
+        fail(f"{label}: the replays {details['replays'][0]} are not the "
+             f"live steps after the save {details['live']}")
+
+
+def run_soak_paths(torch, log_root: str) -> dict:
+    """Path K: ``tools/soak.py`` (SimCLR on R3D-18, B=128, 16x112x112,
+    bf16) for ``SOAK_MINUTES`` and ``tools/moco_soak.py`` (the
+    ``paper_table2_moco_r21d`` step at B=32, K=16384) for
+    ``MOCO_SOAK_MINUTES``, on the card, with every launch count set to 0
+    just before each and read just after: ``aug_fused`` once a step (the
+    live steps and the replays), every other kernel 0. Fails on a
+    non-finite loss, a replay that is not bitwise, a wrong pointer, a queue
+    row off unit norm by more than ``QUEUE_NORM_TOL``, a non-finite key
+    encoder, or no wrap of the queue. Prints both records and their
+    details."""
+    from dualvar_tpu_torch.tools import moco_soak as MS
+    from dualvar_tpu_torch.tools import soak as S
+
+    counters = kernel_counters()
+    out = {}
+    for label, run, minutes in (
+            ("path K, SimCLR soak", S.run_soak, SOAK_MINUTES),
+            ("path K, MoCo soak", MS.run_moco_soak, MOCO_SOAK_MINUTES)):
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        tic = time.perf_counter()
+        record, details = run(minutes=minutes, device="cuda",
+                              ckpt_dir=os.path.join(log_root, "soak_ckpt"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - tic
+        launches = {name: w.launches for name, w in counters.items()}
+        steps = record["steps"] + S.REPLAYS * S.REPLAY_STEPS
+        print(f"{label}: {seconds:.1f} s, {steps} steps (the replays "
+              "included), launches a step " + json.dumps(
+                  {k: v / steps for k, v in launches.items()}), flush=True)
+        print(f"{label}: details " + json.dumps(details), flush=True)
+        print(f"{label}: record " + json.dumps(record), flush=True)
+        check_soak(label, record, details)
+        if launches != expected_launches(aug_fused=steps):
+            fail(f"{label}: launches {launches} in {steps} steps, expected "
+                 "aug_fused once a step and nothing else")
+        if "ptr_ok" in record:
+            if not record["ptr_ok"]:
+                fail(f"{label}: pointer {record['ptr_actual']}, expected "
+                     f"{record['ptr_expected']}")
+            if not record["queue_norm_max_dev"] <= QUEUE_NORM_TOL:
+                fail(f"{label}: a queue row is {record['queue_norm_max_dev']}"
+                     f" off unit norm (tolerance {QUEUE_NORM_TOL})")
+            if not record["ema_finite"]:
+                fail(f"{label}: the key encoder is not finite")
+            if record["queue_wraps"] < 1:
+                fail(f"{label}: {record['steps']} steps of B="
+                     f"{record['batch_size']} did not wrap the queue")
+        out[label] = launches
+    return out
+
+
+# --------------------------------------------------------------------------
 # path V: the backbone registry's variants
 # --------------------------------------------------------------------------
 
@@ -4250,6 +4342,7 @@ def main() -> int:
         by_path.update(path_f)
         check_features_on_card(torch, log_root, state, moco_state)
         run_learning(torch, log_root)
+        by_path.update(run_soak_paths(torch, log_root))
         for kernel in kernels:
             # each kernel's count on the main path of the slice that ported
             # it (path R for the third slice's, the main path's bf16 step

@@ -7,8 +7,10 @@ defaults, so a preset means the same experiment in both packages.
 
 Three fields read differently here:
 
-* ``ModelConfig.dtype`` is the autocast type of the model's forward pass on
-  the card (parameters, BN statistics, heads and losses stay float32);
+* ``ModelConfig.dtype`` is the autocast type of the model's forward pass
+  on every device, the CPU included (parameters, BN statistics, heads and
+  losses stay float32); on the CPU a bfloat16 step runs with oneDNN off
+  (``train/tasks.py:step_context``);
 * ``AugFlags.fused_aug='auto'`` means the hand-written CUDA kernel
   (``ops/aug_fused.py``) whenever the batch lies on a CUDA device, in both
   trainers; ``'off'`` is the unfused per-frame path (``aug/pipeline.py``)
@@ -84,7 +86,7 @@ class ModelConfig:
     aligned_T: float = 0.07  # pretrain.py:101
     mode: str = "clip-sr-tc"  # pretrain.py:103; also 'clip-sr-dtw'
     dtw_gamma: float = 0.1  # soft-DTW smoothing for the dtw TC mode
-    dtype: str = "bfloat16"  # autocast type on the card (params stay f32)
+    dtype: str = "bfloat16"  # autocast type, any device (params stay f32)
     # pack the SR shuffled-clip pass into the main encode batch: one 4B
     # backbone batch instead of 3B + B. Train-mode BN statistics then merge
     # across the four groups, exactly as in the JAX package under the same

@@ -84,6 +84,7 @@ from ..models.heads import LinearClassifier
 from ..models.ssl.losses import cross_entropy_from_logits, topk_accuracy
 from .pretrain import (_AUTOCAST, _override, _resolve_device, make_optimizer,
                        resume_training, training_state)
+from .tasks import step_context
 
 
 def build_model(cfg: ClassifierConfig, seed: int = 0) -> LinearClassifier:
@@ -131,13 +132,12 @@ def make_train_step(model: LinearClassifier, optimizer, scheduler,
         # package applies it with train=False: BN running statistics are
         # used and left as they are, dropout is off
         model.train(not probe)
-        with torch.autocast(device_type=frames_u8.device.type,
-                            dtype=autocast_dtype,
-                            enabled=autocast_dtype != torch.float32):
-            logit, _ = model(clips, generator=generator)
-        loss = cross_entropy_from_logits(logit, labels)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with step_context(frames_u8.device.type, autocast_dtype) as autocast:
+            with autocast():
+                logit, _ = model(clips, generator=generator)
+            loss = cross_entropy_from_logits(logit, labels)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         dist.average_gradients(model.parameters())
         optimizer.step()
         scheduler.step()
@@ -153,10 +153,10 @@ def _forward(model: LinearClassifier, clips: torch.Tensor,
              autocast_dtype: torch.dtype):
     """Inference-mode forward -> (float32 logits, feat)."""
     model.eval()
-    with torch.no_grad(), torch.autocast(
-            device_type=clips.device.type, dtype=autocast_dtype,
-            enabled=autocast_dtype != torch.float32):
-        logit, feat = model(clips)
+    with torch.no_grad(), step_context(clips.device.type,
+                                       autocast_dtype) as autocast:
+        with autocast():
+            logit, feat = model(clips)
     return logit.float(), feat
 
 

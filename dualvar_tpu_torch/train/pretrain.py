@@ -82,7 +82,7 @@ from ..data.indices import load_class_index, load_split
 from ..data.loader import (HostLoader, JpegFrameSource, PretrainDataset,
                            SyntheticFrameSource, synthetic_entries)
 from ..models.ssl.losses import topk_accuracy
-from .tasks import make_task, total_loss
+from .tasks import make_task, step_context, total_loss
 
 _AUTOCAST = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -144,13 +144,12 @@ def make_train_step(task, optimizer, scheduler, aug_cfg: AugConfig,
     def train_step(frames_u8: torch.Tensor, generator: torch.Generator):
         with torch.no_grad():
             block = pretrain_batch(generator, frames_u8, aug_cfg)
-        with torch.autocast(device_type=frames_u8.device.type,
-                            dtype=autocast_dtype,
-                            enabled=autocast_dtype != torch.float32):
-            ret = task.forward(block, generator=generator)
-        loss = total_loss(ret)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with step_context(frames_u8.device.type, autocast_dtype) as autocast:
+            with autocast():
+                ret = task.forward(block, generator=generator)
+            loss = total_loss(ret)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         dist.average_gradients(task.parameters())
         optimizer.step()
         scheduler.step()
@@ -620,10 +619,9 @@ def visualize(cfg: PretrainConfig, n_samples: int = 4,
         block = pretrain_batch(generator, torch.from_numpy(frames).to(device),
                                aug_config(cfg))
     view0 = block[:, 0]  # (B, T, d, d, 3), normalised
-    dtype = _AUTOCAST[cfg.model.dtype]
-    with torch.autocast(device_type=device.type, dtype=dtype,
-                        enabled=dtype != torch.float32):
-        attn = task.get_features(view0)
+    with step_context(device.type, _AUTOCAST[cfg.model.dtype]) as autocast:
+        with autocast():
+            attn = task.get_features(view0)
 
     writer = MetricsWriter(exp_path)  # images land under {exp}/img/
     written = []
@@ -683,7 +681,7 @@ def config_from_argv(argv: list[str] | None = None
                         "pass (torch.utils.checkpoint; less memory, about "
                         "1/3 more FLOPs)")
     p.add_argument("--dtype", default=None, choices=[None, "bfloat16", "float32"],
-                   help="autocast type of the model forward on the card")
+                   help="autocast type of the model forward")
     p.add_argument("--packed_encode", type=int, default=None,
                    choices=[None, 0, 1],
                    help="pack the SR shuffled pass into the main encode "

@@ -14,6 +14,9 @@ accounting (pretrain.py:404-445).
 
 from __future__ import annotations
 
+import contextlib
+from typing import Callable, Iterator
+
 import torch
 
 from ..core.config import ModelConfig
@@ -24,6 +27,42 @@ from ..models.ssl.simclr import SimCLRNaked, SimCLRTimeSeriesV4
 def total_loss(ret: dict[str, torch.Tensor]) -> torch.Tensor:
     """Sum of every '*loss' entry (reference pretrain.py:404-445)."""
     return sum(v for k, v in ret.items() if k.endswith("loss"))
+
+
+@contextlib.contextmanager
+def step_context(device_type: str, dtype: torch.dtype
+                 ) -> Iterator[Callable[[], contextlib.AbstractContextManager]]:
+    """The context of one step of a model whose forward runs under ``dtype``
+    autocast on ``device_type``; it yields the forward's autocast (a
+    ``torch.autocast``, off for float32)::
+
+        with step_context(device.type, dtype) as autocast:
+            with autocast():
+                loss = ...
+            loss.backward()
+
+    The block holds the backward as well as the forward: on the CPU under
+    bfloat16 it runs with oneDNN off, since oneDNN's bfloat16 weight
+    gradient of some conv3d shapes is NaN, inf or far off (R(2+1)D-18's
+    ``layer2_block0.conv2.temporal_conv`` at 4x16x16 clips), and
+    ``convolution_backward`` picks its route when the backward runs. ATen's
+    own bfloat16 convolutions then compute both passes. On CUDA, and in
+    float32, the block is the autocast alone."""
+    def autocast():
+        return torch.autocast(device_type=device_type, dtype=dtype,
+                              enabled=dtype != torch.float32)
+
+    if device_type != "cpu" or dtype != torch.bfloat16:
+        yield autocast
+        return
+    # the flag alone: ``torch.backends.mkldnn.flags`` also resets oneDNN's
+    # TF32 and precision flags
+    onednn = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield autocast
+    finally:
+        torch.backends.mkldnn.enabled = onednn
 
 
 class SimCLRTask:

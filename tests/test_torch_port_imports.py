@@ -59,6 +59,8 @@ print("\\n".join(names))
             "dualvar_tpu_torch.data.prep.extract_frames",
             "dualvar_tpu_torch.tools.learning_check",
             "dualvar_tpu_torch.tools.paper_chain",
+            "dualvar_tpu_torch.tools.soak",
+            "dualvar_tpu_torch.tools.moco_soak",
             "dualvar_tpu_torch.train.pretrain"} <= set(names)
     # the kernels' sources are data beside the package, not modules of it
     assert not any("csrc" in name for name in names)

@@ -62,6 +62,7 @@ def replay(tmp_path_factory):
     found = lambda: (os.getcwd(), list(logger.handlers), logger.level,  # noqa
                      torch.backends.cudnn.allow_tf32,
                      torch.get_float32_matmul_precision(),
+                     torch.backends.mkldnn.enabled,
                      os.environ.get("DUALVAR_BN_STATS"))
     seen["before"] = found()
     try:
@@ -85,9 +86,10 @@ def test_the_stages_are_the_chain(replay):
 
 
 def test_replay_leaves_the_process_as_found(replay):
-    """The working directory, the logger, the backend flags and the batch
-    norm's variable, after four stages that each set up a logger and the
-    cuDNN flags."""
+    """The working directory, the logger, the backend flags (oneDNN's too,
+    which each bfloat16 step on the CPU turns off for its duration) and the
+    batch norm's variable, after four stages that each set up a logger and
+    the cuDNN flags."""
     _, _, seen = replay
     assert seen["after"] == seen["before"]
 
