@@ -153,6 +153,17 @@ Phases, each fatal on failure (non-zero exit):
      queue rows' norms within 1e-3, the key encoder finite, ``aug_fused``
      once a step and no other kernel; both records, clips/s by chain, the
      save's cost and the device memory;
+   - path B, the benches (``tools/bench.py``, ``tools/objective_bench.py``,
+     ``tools/backbone_bench.py``, ``tools/eval_bench.py``,
+     ``tools/step_breakdown.py``, ``tools/perf_breakdown.py``), each
+     tool's function at 16x112x112 from 171x128 frames, bf16: the R3D-18
+     SimCLR unit at B=128 (2 chains of 10 steps), all 8 objective units,
+     all 9 backbones and all 7 eval nets at the largest batch that fits
+     (one chain of 5 steps), the breakdown's segments (5 steps each):
+     every record's losses finite, its chains positive, ``step_tflops``
+     and ``mfu_pct`` on every train record, ``aug_fused`` once a train
+     step (none in eval) and no other kernel; every record with its
+     launches;
    then step times at B=8 and B=32 (MoCo in ``clip-sr-tc`` and
    ``clip-sr-dtw``, at n_series 2 and 16: the difference is what soft-DTW
    and its cost tensor take), of path R at B=8, 32 and 128 with the
@@ -174,6 +185,9 @@ Phases, each fatal on failure (non-zero exit):
    out of it with a breakdown by call size; then one ``channel_sums`` call
    in a ``torch.profiler`` trace.
 
+``python3 chip_smoke.py --bench-only`` builds the kernels and runs path B
+alone (no contract line at the end).
+
 The last lines of standard output are the script's wall time, one JSON
 object describing every kernel (``{"kernels": [...]}``), the card's name and
 power limit, and
@@ -187,6 +201,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -197,10 +212,11 @@ import sys
 import tempfile
 import time
 
-# published H100 SXM peaks (NVIDIA data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
+from dualvar_tpu_torch.tools.timing import BF16_FLOPS_PER_S, HBM_BYTES_PER_S
+
+# published H100 SXM peak (NVIDIA data sheet, dense), beside the memory
+# rate and the bf16 peak of tools/timing.py
 F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
 # special functions (exp2, log2, reciprocal): 16 results a clock an SM
 # (Hopper white paper), 132 SMs at the 1.98 GHz boost clock that the float32
 # peak above also assumes
@@ -2089,10 +2105,14 @@ def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
     classifier), on one device-resident batch (loading excluded), bf16
     autocast as the preset asks: ``windows`` host-clock windows of ``n``
     steps after 3 warm-up steps, the median window's ms per step and every
-    window's, with peak device memory."""
+    window's, with peak device memory. ``samples_per_s`` is B a second,
+    ``clips_per_s`` B x views a second (the benches' and soaks' clips)."""
     classifier = is_classifier(cfg)
     batch_size = cfg.optim.batch_size
     setup = trainer_of(cfg).setup_training(cfg, "cuda")
+    # clips a sample: the views each pretrain sample encodes, one for the
+    # classifier
+    n_views = 1 if classifier else setup.task.n_views
     with setup.loader as loader:
         batch = next(loader.epoch(0))
     inputs = [torch.from_numpy(batch[key]).to("cuda")
@@ -2136,7 +2156,8 @@ def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
         "backend": torch.distributed.get_backend() if dist.active() else None,
         "collectives_per_step": {k: v / (n * windows)
                                  for k, v in dist.collectives.items()},
-        "ms_per_step": ms, "clips_per_s": batch_size / ms * 1e3,
+        "ms_per_step": ms, "samples_per_s": batch_size / ms * 1e3,
+        "clips_per_s": batch_size * n_views / ms * 1e3,
         "window_ms_per_step": window_ms,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
@@ -3400,6 +3421,120 @@ def run_soak_paths(torch, log_root: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# path B: the benches
+# --------------------------------------------------------------------------
+
+# tools/bench.py: chains and steps a chain; every objective unit, backbone,
+# eval net and breakdown segment: one chain of BENCH_SWEEP_STEPS steps
+BENCH_CHAINS, BENCH_STEPS = 2, 10
+BENCH_SWEEP_STEPS = 5
+# perf_breakdown's segments that step_breakdown's do not repeat
+PERF_BREAKDOWN_SEGMENTS = ("aug_fwd", "step_b256")
+
+
+def check_bench_record(label: str, rec: dict, launches: dict,
+                       aug_launches: int, flops: bool = True) -> None:
+    """What fails a bench record: an error (no batch fits), a chain time
+    that is not positive, a non-finite loss or output, a record without
+    ``step_tflops`` and ``mfu_pct`` (with ``flops``), and launches other
+    than ``aug_launches`` of ``aug_fused`` at the batch that fit and none
+    of another kernel. A batch that ran out of memory adds the steps it
+    started, its last one with or without its launch (the allocation that
+    failed may come before the kernel)."""
+    if "error" in rec:
+        fail(f"{label}: {rec['error']} (did not fit: {rec['did_not_fit']})")
+    if not all(ms > 0 for ms in rec["chains_ms"]):
+        fail(f"{label}: a chain took {rec['chains_ms']} ms a step")
+    value = rec.get("output_finite", rec.get(
+        "final_loss", rec.get("loss", rec.get("output"))))
+    if value is not True and not (isinstance(value, float)
+                                  and math.isfinite(value)):
+        fail(f"{label}: the loss or output is not finite ({value})")
+    if flops and (rec.get("step_tflops") is None
+                  or rec.get("mfu_pct") is None):
+        fail(f"{label}: no step_tflops / mfu_pct in {rec}")
+    low = high = aug_launches
+    if aug_launches:
+        high += rec["oom_steps"]
+        low = high - len(rec["did_not_fit"])
+    if not low <= launches["aug_fused"] <= high or any(
+            n for name, n in launches.items() if name != "aug_fused"):
+        fail(f"{label}: launches {launches}, expected aug_fused "
+             f"{low}..{high} (steps {rec['steps']}, the batches that did "
+             f"not fit {rec['did_not_fit']} with {rec['oom_steps']} steps) "
+             "and no other kernel")
+
+
+def run_bench_phase(torch) -> dict:
+    """Path B: each bench tool's function on the card at full width
+    (16x112x112 clips from 171x128 frames, bf16 autocast), with every
+    launch count set to 0 just before each call and read just after:
+    ``tools/bench.py`` (R3D-18 SimCLR at B=128, ``BENCH_CHAINS`` chains of
+    ``BENCH_STEPS``), every unit of ``tools/objective_bench.py``, every
+    net of ``tools/backbone_bench.py`` and ``tools/eval_bench.py`` at the
+    largest batch that fits, and the breakdowns' segments, one chain of
+    ``BENCH_SWEEP_STEPS`` each. Checks every record
+    (``check_bench_record``) and prints it with its launches; returns the
+    launches summed over the phase."""
+    from dualvar_tpu_torch.tools import backbone_bench as BB
+    from dualvar_tpu_torch.tools import bench as BN
+    from dualvar_tpu_torch.tools import eval_bench as EB
+    from dualvar_tpu_torch.tools import objective_bench as OB
+    from dualvar_tpu_torch.tools import perf_breakdown as PB
+    from dualvar_tpu_torch.tools import step_breakdown as SB
+
+    counters = kernel_counters()
+    total = dict.fromkeys(counters, 0)
+    tic = time.perf_counter()
+
+    def call(label, fn, aug=lambda rec: rec["steps"], flops=True):
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        start = time.perf_counter()
+        rec = fn()
+        torch.cuda.synchronize()
+        launches = {name: w.launches for name, w in counters.items()}
+        print(f"path B, {label}: {time.perf_counter() - start:.1f} s, "
+              f"launches {json.dumps(launches)}, record {json.dumps(rec)}",
+              flush=True)
+        check_bench_record(f"path B, {label}", rec, launches, aug(rec),
+                           flops)
+        for name, n in launches.items():
+            total[name] += n
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+
+    # the forward's count augments one more batch outside the steps
+    call("bench", lambda: BN.run_bench(steps=BENCH_STEPS,
+                                       chains=BENCH_CHAINS,
+                                       device="cuda")[0],
+         aug=lambda rec: rec["steps"] + 1)
+    for name in OB.UNITS:
+        call(f"objective {name}", lambda: OB.bench_unit(
+            name, BENCH_SWEEP_STEPS, 1, "cuda"))
+    for net in BB.CANDIDATES:
+        call(f"backbone {net}", lambda: BB.bench_net(
+            net, BENCH_SWEEP_STEPS, 1, device="cuda"))
+    for net in EB.CANDIDATES:
+        call(f"eval {net}", lambda: EB.bench_net(
+            net, BENCH_SWEEP_STEPS, 1, device="cuda"),
+             aug=lambda rec: 0, flops=False)
+    plan = SB.plan() + [s for s in PB.plan()
+                        if s[0] in PERF_BREAKDOWN_SEGMENTS]
+    for segment in plan:
+        # fwd and fwdloss augment once, for their resident block
+        call(f"breakdown {segment[0]}", lambda: SB.run_segments(
+            [segment], BENCH_SWEEP_STEPS, 1, "cuda")[0],
+             aug=(lambda rec: 1) if segment[1] in ("fwd", "fwdloss")
+             else (lambda rec: rec["steps"]),
+             flops=segment[1] != "aug")
+    print(f"path B: {time.perf_counter() - tic:.1f} s, launches "
+          + json.dumps(total), flush=True)
+    return {"path B": total}
+
+
+# --------------------------------------------------------------------------
 # path V: the backbone registry's variants
 # --------------------------------------------------------------------------
 
@@ -4239,8 +4374,10 @@ def run_path_f(torch, log_root: str) -> dict:
     return by_run, summary
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     start = time.perf_counter()
+    # --bench-only: the kernels' build, then path B alone (no contract line)
+    bench_only = "--bench-only" in (sys.argv[1:] if argv is None else argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -4300,6 +4437,12 @@ def main() -> int:
 
     for name in PTXAS_CLEAN:
         check_ptxas_clean(name)
+    if bench_only:
+        run_bench_phase(torch)
+        print(f"chip_smoke --bench-only: {time.perf_counter() - start:.1f} s "
+              "from start to end, the kernels' build included", flush=True)
+        print(smi)
+        return 0
 
     device = torch.device("cuda")
     kernels = [check_aug_kernel(torch, device),
@@ -4343,6 +4486,7 @@ def main() -> int:
         check_features_on_card(torch, log_root, state, moco_state)
         run_learning(torch, log_root)
         by_path.update(run_soak_paths(torch, log_root))
+        by_path.update(run_bench_phase(torch))
         for kernel in kernels:
             # each kernel's count on the main path of the slice that ported
             # it (path R for the third slice's, the main path's bf16 step

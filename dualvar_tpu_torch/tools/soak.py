@@ -49,7 +49,6 @@ import math
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -64,27 +63,12 @@ from ..core.config import ModelConfig, PretrainConfig
 from ..train.pretrain import (_AUTOCAST, _resolve_device, build_task,
                               make_optimizer, make_train_step,
                               restore_training_state, training_state)
+from .timing import device_line
 
 # live steps kept after the save, and steps of each replay
 REPLAY_STEPS = 3
 REPLAYS = 2
 log = functools.partial(print, flush=True)
-
-
-def device_line(device: torch.device) -> str:
-    """What the run's numbers are read on: ``nvidia-smi``'s name and power
-    limit of the card (torch's name where ``nvidia-smi`` cannot be run), or
-    ``cpu``."""
-    if device.type != "cuda":
-        return "cpu"
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader", f"--id={device.index or 0}"],
-            capture_output=True, text=True, timeout=30)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return f"{torch.cuda.get_device_name(device)} (nvidia-smi: {e})"
-    return out.stdout.strip() or torch.cuda.get_device_name(device)
 
 
 @contextlib.contextmanager

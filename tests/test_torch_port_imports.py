@@ -61,6 +61,14 @@ print("\\n".join(names))
             "dualvar_tpu_torch.tools.paper_chain",
             "dualvar_tpu_torch.tools.soak",
             "dualvar_tpu_torch.tools.moco_soak",
+            "dualvar_tpu_torch.tools.timing",
+            "dualvar_tpu_torch.tools.sweep_merge",
+            "dualvar_tpu_torch.tools.bench",
+            "dualvar_tpu_torch.tools.objective_bench",
+            "dualvar_tpu_torch.tools.backbone_bench",
+            "dualvar_tpu_torch.tools.eval_bench",
+            "dualvar_tpu_torch.tools.perf_breakdown",
+            "dualvar_tpu_torch.tools.step_breakdown",
             "dualvar_tpu_torch.train.pretrain"} <= set(names)
     # the kernels' sources are data beside the package, not modules of it
     assert not any("csrc" in name for name in names)
