@@ -15,10 +15,11 @@ Phases, each fatal on failure (non-zero exit):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it, then timed beside its roofline bound:
    ``aug_fused`` (its float32 route, with where its error against the
-   plain version comes from, and its bfloat16 compute route at the main
-   path's N=24 with blur on and off and path C's N=4 and 32, both output
-   types, in bfloat16 ulps, timed in L2 and out of it beside the float32
-   route), the soft-DTW forward and backward kernels (every column
+   plain version comes from and its SASS and output bits against a
+   recorded build, and its bfloat16 compute route at the main path's N=24
+   with blur on and off and path C's N=4 and 32, both output types, in
+   bfloat16 ulps, timed in L2 and out of it beside the float32 route, with
+   where its time goes), the soft-DTW forward and backward kernels (every column
    bucket and both routes, at path M's and path M16's shapes; timed with
    their data out of L2, the rows route beside the 2x2 route), the channel
    sums of the batch norm (``channel_sums``; also against float64 sums, at
@@ -28,9 +29,10 @@ Phases, each fatal on failure (non-zero exit):
    reductions, with the host's time a call and the replay floor of an empty
    kernel) and
    the 3x3x3 conv with BN statistics (``conv3d_bn_stats``, both routes: the
-   bfloat16 tensor-core kernel and the float32 CUDA-core kernel; its sums
-   also against float64 sums of its own output, at three grid sizes); the
-   number of ``HGMMA`` / ``UTMALDG`` instructions in the conv library's SASS;
+   bfloat16 tensor-core kernel and the float32 split-TF32 tensor-core
+   kernel; its sums also against float64 sums of its own output, at three
+   grid sizes, a ragged shape and a wide one); the number of ``HGMMA`` /
+   ``UTMALDG`` instructions in each conv kernel's SASS;
 4. paths, each through ``train()`` at full width, depth and clip size on
    synthetic frames at batch 8, with every kernel's launch count set to 0
    just before and read just after:
@@ -186,7 +188,10 @@ Phases, each fatal on failure (non-zero exit):
    in a ``torch.profiler`` trace.
 
 ``python3 chip_smoke.py --bench-only`` builds the kernels and runs path B
-alone (no contract line at the end).
+alone (no contract line at the end). ``python3 chip_smoke.py --aug-study``
+builds them and runs ``aug_fused``'s studies alone (``run_aug_study``: the
+float32 route against its reference build, the SASS by instruction class,
+the bfloat16 route's time by blur and hue), no contract line either.
 
 The last lines of standard output are the script's wall time, one JSON
 object describing every kernel (``{"kernels": [...]}``), the card's name and
@@ -214,9 +219,10 @@ import time
 
 from dualvar_tpu_torch.tools.timing import BF16_FLOPS_PER_S, HBM_BYTES_PER_S
 
-# published H100 SXM peak (NVIDIA data sheet, dense), beside the memory
+# published H100 SXM peaks (NVIDIA data sheet, dense), beside the memory
 # rate and the bf16 peak of tools/timing.py
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 # special functions (exp2, log2, reciprocal): 16 results a clock an SM
 # (Hopper white paper), 132 SMs at the 1.98 GHz boost clock that the float32
 # peak above also assumes
@@ -539,18 +545,181 @@ def bf16c_errors(torch, got, want) -> dict:
 
 
 def aug_ptxas(name: str = "aug_fused") -> list[dict]:
-    """ptxas's registers, stack and spills of every ``aug_band_kernel``
-    instantiation, named by its template arguments."""
+    """ptxas's registers, stack and spills of every instantiation of the
+    float32 route's ``aug_band_kernel`` (``compute_bf16=0``) and of the
+    bfloat16 route's kernel (``compute_bf16=1``), named by their template
+    arguments, each with its mangled name."""
     import re
 
     rows = ptxas_report(name)
     for row in rows:
-        m = re.search(r"aug_band_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])E",
-                      row["kernel"])
+        m = re.search(r"aug_(band|bf16_band)_kernelI(f|13__nv_bfloat16)Lb([01])"
+                      r"E(Lb([01])E)?", row["kernel"])
         if m:
+            bf = "1" if m.group(1) == "bf16_band" else m.group(5) or "0"
+            row["mangled"] = row["kernel"]
             row["kernel"] = (
-                f"aug_band_kernel<out={'f32' if m.group(1) == 'f' else 'bf16'}"
-                f", vec={m.group(2)}, compute_bf16={m.group(3)}>")
+                f"aug_band_kernel<out={'f32' if m.group(2) == 'f' else 'bf16'}"
+                f", vec={m.group(3)}, compute_bf16={bf}>")
+    return rows
+
+
+def aug_sass_classes(lib_path: str) -> dict:
+    """Static counts of the SASS instructions of every ``aug_band_kernel``
+    instantiation (``aug_ptxas``'s names) by class: conversions (F2F, F2FP,
+    I2F, PRMT), float32 arithmetic (FADD, FMUL, FFMA, FMNMX), packed 16-bit
+    arithmetic (HADD2, HMUL2, HFMA2, HMNMX2), special functions (MUFU),
+    shared and distributed shared memory (LDS, STS, LD, ST), branches
+    (BRA), local memory (LDL, STL), the rest, and the total."""
+    import re
+
+    funcs = sass_functions(lib_path) or {}
+    classes = {"convert": ("F2F", "F2FP", "I2F", "PRMT"),
+               "f32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL"),
+               "packed16": ("HADD2", "HMUL2", "HFMA2", "HMNMX2"),
+               "mufu": ("MUFU",), "shared": ("LDS", "STS", "LD", "ST"),
+               "local": ("LDL", "STL"), "branch": ("BRA",)}
+    out = {}
+    for name, body in funcs.items():
+        label = next((r["kernel"] for r in aug_ptxas() if r.get("mangled")
+                      == name), None)
+        if label is None:
+            continue
+        row = dict.fromkeys([*classes, "other"], 0)
+        for ins in body:
+            op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0]
+            row[next((c for c, ops in classes.items() if op in ops),
+                     "other")] += 1
+        row["total"] = len(body)
+        out[label] = row
+    return out
+
+
+def aug_f32_fingerprint(torch, device) -> dict:
+    """The float32 route as built: the sha1 of each of its four
+    ``aug_band_kernel`` instantiations' SASS (instructions without
+    addresses) and of its outputs on ``check_aug_kernel``'s N=24 input
+    (normalised and not, float32 and bfloat16 out)."""
+    import hashlib
+    import re
+
+    from dualvar_tpu_torch.ops import aug_fused as mod
+    from dualvar_tpu_torch.ops.build import library_path, load_library
+
+    load_library("aug_fused")  # built here at first use
+    path = library_path("aug_fused")
+    funcs = sass_functions(path) or {}
+    sass = {}
+    for name, body in funcs.items():
+        if m := re.search(r"aug_band_kernelI(f|13__nv_bfloat16)Lb([01])E"
+                          r"(?:Lb0E)?E", name):
+            key = f"out={'f32' if m.group(1) == 'f' else 'bf16'}, " \
+                  f"vec={m.group(2)}"
+            sass[key] = hashlib.sha1("\n".join(body).encode()).hexdigest()
+    args = aug_inputs(torch, 24, 16, 112, 0, device)
+    outputs = {}
+    for out_dtype, normalize in ((torch.float32, True),
+                                 (torch.float32, False),
+                                 (torch.bfloat16, True)):
+        y = mod._launch(*args, out_dtype, normalize)
+        torch.cuda.synchronize()
+        key = f"{str(out_dtype).split('.')[-1]} out, normalize={normalize}"
+        outputs[key] = hashlib.sha1(
+            y.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    return {"sass": sass, "outputs": outputs}
+
+
+# ``aug_f32_fingerprint`` of the float32 route as the redesign of the
+# bfloat16 route found it, built by this nvcc (NVIDIA H100 80GB HBM3). A
+# change that must leave the float32 route as it is shows it with
+# ``--aug-study``; a change that means to alter the route refreshes these
+# hashes. Another nvcc may compile the same source to other instructions:
+# the comparison is then printed as not made.
+AUG_F32_REFERENCE = {
+    "nvcc": "Build cuda_12.9.r12.9/compiler.36037853_0",
+    "sass": {"out=f32, vec=0": "fdcfc002907998ad647385307a6c09750629b433",
+             "out=f32, vec=1": "1c414f3711d961a5596fee51f2083456c8b40237",
+             "out=bf16, vec=0": "64a324780fbd6548d72753407683af013ea1e3ff",
+             "out=bf16, vec=1": "870c49ee79794bdae075ecc5af96b59e36aff629"},
+    "outputs": {
+        "float32 out, normalize=True":
+            "45dd37f31112e5d9ff0b33119520c3edf5e86ed4",
+        "float32 out, normalize=False":
+            "aaac40501adeb6fa28acbb51f9ce8dcec20c4e1a",
+        "bfloat16 out, normalize=True":
+            "aa5b80ee6f88a6fff54aca07ed651d3bae95c2d8"}}
+
+
+def check_aug_f32_unchanged(torch, device) -> dict:
+    """This tree's float32 route against ``AUG_F32_REFERENCE``: the same
+    SASS and the same output bits. Another nvcc may compile the same source
+    to other instructions: then the comparison is printed as not made."""
+    got = aug_f32_fingerprint(torch, device)
+    nvcc = nvcc_version()
+    same = {part: got[part] == AUG_F32_REFERENCE[part]
+            for part in ("sass", "outputs")}
+    out = {"nvcc": nvcc, **{f"{part}_unchanged": v
+                            for part, v in same.items()}}
+    if nvcc != AUG_F32_REFERENCE["nvcc"]:
+        out = {"nvcc": nvcc, "compared": False}
+    elif not all(same.values()):
+        fail(f"aug_fused float32 route changed: {json.dumps(got)}")
+    print("kernels: aug_fused float32 route against its reference build: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def run_aug_study(torch, device) -> dict:
+    """``--aug-study``: the float32 route against ``AUG_F32_REFERENCE``,
+    the SASS of every ``aug_fused`` instantiation by instruction class, and
+    where the bfloat16 route's time goes beside the float32 route's. None
+    of them is a check of the main run."""
+    from dualvar_tpu_torch.ops.build import library_path
+
+    out = {"f32_unchanged": check_aug_f32_unchanged(torch, device)}
+    out["sass_classes"] = aug_sass_classes(library_path("aug_fused"))
+    print("build: SASS of aug_fused by instruction class: "
+          + json.dumps(out["sass_classes"]), flush=True)
+    out["breakdown"] = aug_bf16_breakdown(torch, device)
+    return out
+
+
+def aug_bf16_breakdown(torch, device) -> dict:
+    """Where the bfloat16 route's time goes, beside the float32 route's on
+    the same copies: N=24 (16x112x112, float32 out, normalised), out of L2
+    (``time_cuda_graph_cold``), blur on every other clip, on all and on
+    none, each with hue's factor as drawn and at 0."""
+    from dualvar_tpu_torch.ops import aug_fused as mod
+
+    clips, orders, factors, blur = aug_inputs(torch, 24, 16, 112, 2, device)
+    copies = cold_copies(torch, clips.numel() * (1 + 4))
+    rows = {}
+    for blurred, on in (("every other", None), ("all", 1.0), ("none", 0.0)):
+        for hue_name, hue_zero in (("hue drawn", False), ("hue 0", True)):
+            b, f = blur.clone(), factors.clone()
+            if on is not None:
+                b[:, 1] = on
+            if hue_zero:
+                f[:, 3] = 0.0
+            sets = [(clips.clone(), orders.clone(), f.clone(), b.clone())
+                    for _ in range(copies)]
+            row = {}
+            for compute in (torch.bfloat16, torch.float32, torch.bfloat16):
+                outs = []
+
+                def launch(c):
+                    outs.append(mod._launch(*sets[c], torch.float32, True,
+                                            compute))
+
+                name = str(compute).split(".")[-1] + "_cold_ms"
+                ms = time_cuda_graph_cold(torch, launch, copies)
+                row[name] = min(ms, row.get(name, ms))
+                outs.clear()
+            row["ratio"] = row["bfloat16_cold_ms"] / row["float32_cold_ms"]
+            rows[f"blur {blurred}, {hue_name}"] = row
+            del sets
+    print("kernels: aug_fused bf16 compute breakdown N=24, out of L2: "
+          + json.dumps(rows), flush=True)
     return rows
 
 
@@ -625,7 +794,8 @@ def check_aug_bf16_compute(torch, device) -> dict:
     plain_ms = time_cuda(torch, lambda: mod.aug_fused_plain(
         clips, orders, factors, blur, compute_dtype=torch.bfloat16), 5,
         warmup=1)
-    ptxas = [r for r in aug_ptxas() if "compute_bf16=1" in r["kernel"]]
+    ptxas = [{k: v for k, v in r.items() if k != "mangled"}
+             for r in aug_ptxas() if "compute_bf16=1" in r["kernel"]]
     print("build: ptxas aug_fused, bf16 compute route: " + json.dumps(ptxas),
           flush=True)
     entry = {
@@ -1468,66 +1638,123 @@ def check_channel_sums_kernel(torch, device, floor) -> dict:
 
 
 def conv_bound_ms(N, T, H, W, C, Co, elem_bytes) -> tuple[float, str]:
-    """The least time for one 3x3x3 conv with statistics: 2*27*C*Co
-    operations an output position, at the bf16 tensor-core rate for bf16
-    inputs and the float32 rate of the CUDA cores for float32 ones, against
-    x, w and y moved once."""
+    """The least time for one 3x3x3 conv with statistics, against x, w and
+    y moved once: 2*27*C*Co operations an output position at the bf16
+    tensor-core rate for bf16 inputs; for float32 inputs at float32
+    accuracy, the split-TF32 floor, three such products at the TF32
+    tensor-core rate (``conv_fma_bound_ms`` is the same work as float32
+    FMAs on the CUDA cores)."""
     flops = 2 * N * T * H * W * 27 * C * Co
     bytes_moved = (N * T * H * W * (C + Co) + 27 * C * Co) * elem_bytes
-    rate = BF16_FLOPS_PER_S if elem_bytes == 2 else F32_FLOPS_PER_S
-    t_ops = flops / rate * 1e3
+    t_ops = (flops / BF16_FLOPS_PER_S if elem_bytes == 2
+             else 3 * flops / TF32_FLOPS_PER_S) * 1e3
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def sass_counts(lib_path: str) -> dict:
-    """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions the
-    library's SASS holds, from ``cuobjdump -sass``; None where the toolkit
-    has no cuobjdump."""
+def conv_fma_bound_ms(N, T, H, W, C, Co) -> float:
+    """The float32 conv's 2*27*C*Co operations an output position at the
+    CUDA cores' float32 rate: the floor of any kernel that runs it as
+    float32 FMAs."""
+    return 2 * N * T * H * W * 27 * C * Co / F32_FLOPS_PER_S * 1e3
+
+
+def sass_functions(lib_path: str) -> dict | None:
+    """Each kernel's SASS instructions in the library (``cuobjdump -sass``),
+    by its mangled name, one string an instruction without its address or
+    encoding; None where the toolkit has no cuobjdump."""
+    import re
+
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
-        return {"HGMMA": None, "UTMALDG": None}
+        return None
     out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                          text=True, timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump -sass {lib_path}: {out.stderr.strip()}")
-    return {op: sum(op in line for line in out.stdout.splitlines())
-            for op in ("HGMMA", "UTMALDG")}
+    funcs, body = {}, None
+    for line in out.stdout.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            body = funcs.setdefault(m.group(1), [])
+        elif body is not None and (m := re.match(
+                r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)):
+            body.append(m.group(1))
+    return funcs
+
+
+def sass_counts(lib_path: str, kernels: dict) -> dict:
+    """How many HGMMA (wgmma) and UTMALDG (TMA load) instructions each
+    kernel's SASS holds: ``kernels`` maps a label to a regular expression of
+    its mangled name; None where the toolkit has no cuobjdump."""
+    import re
+
+    funcs = sass_functions(lib_path)
+    out = {}
+    for label, pattern in kernels.items():
+        body = None if funcs is None else [
+            ins for name, code in funcs.items() if re.search(pattern, name)
+            for ins in code]
+        out[label] = {op: None if body is None else
+                      sum(ins.split()[0].startswith(op) or f" {op}" in ins
+                          for ins in body)
+                      for op in ("HGMMA", "UTMALDG")}
+    return out
+
+
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (the toolkit that built the
+    kernels)."""
+    from dualvar_tpu_torch.ops.build import _nvcc
+
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[-1] if out.stdout else ""
 
 
 def check_conv_kernel(torch, device) -> tuple[dict, dict]:
     """conv3d_bn_stats on both routes: bfloat16 (tensor cores) at path R's
     layer-1 shape for N = 1, 2, 16 (three grid sizes), at a ragged shape and
-    at one with W > 64, C > 64 and Co not a multiple of 64; float32 (CUDA
-    cores) at N = 2. y against a float32 convolution of the same inputs
-    (TF32 off), s1 and s2 against float64 sums of the kernel's own y and
-    against the plain version's; each call must go through its route's
-    kernel. Then the times at N=16 (B=8) and N=64 (B=32) beside cuDNN's
-    convolution without the sums, and the float32 route's at N=16."""
+    at one with W > 64, C > 64 and Co not a multiple of 64; float32 (split
+    TF32 on the tensor cores) at the layer-1 shape for N = 2 and 16 and at
+    the same ragged and wide shapes. y against a float32 convolution of the
+    same inputs (TF32 off), s1 and s2 against float64 sums of the kernel's
+    own y and against the plain version's; each call must go through its
+    route's kernel, and each kernel's SASS must hold wgmma and TMA loads.
+    Then the times at N=16 (B=8) and N=64 (B=32) beside cuDNN's convolution
+    without the sums, and the float32 route's at N=16."""
     from dualvar_tpu_torch.ops import conv_fused as mod
-    from dualvar_tpu_torch.ops.build import library_path
+    from dualvar_tpu_torch.ops.build import library_path, load_library
 
-    sass = sass_counts(library_path("conv_fused"))
+    load_library("conv_fused")  # built here at first use
+    sass = sass_counts(library_path("conv_fused"), {
+        "bf16": r"conv3d_bn_stats_tc_kernel",
+        "f32": r"conv3d_bn_stats_f32_kernel"})
     print(f"kernels: conv_fused SASS: {json.dumps(sass)}", flush=True)
-    if sass["HGMMA"] == 0 or sass["UTMALDG"] == 0:
-        fail(f"conv_fused: no wgmma or no TMA load in the SASS: {sass}")
+    for label, counts in sass.items():
+        if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0:
+            fail(f"conv_fused {label}: no wgmma or no TMA load in the SASS: "
+                 f"{sass}")
 
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=device).manual_seed(6)
     worst = {torch.bfloat16: [0.0, 0.0, 0.0], torch.float32: [0.0, 0.0, 0.0]}
+    cases = {}
     for (N, T, H, W, C, Co), dtype in (
             ((1, 16, 56, 56, 64, 64), torch.bfloat16),
             ((2, 16, 56, 56, 64, 64), torch.bfloat16),
             ((16, 16, 56, 56, 64, 64), torch.bfloat16),
             ((2, 5, 9, 13, 24, 40), torch.bfloat16),
             ((1, 4, 12, 70, 128, 96), torch.bfloat16),
-            ((2, 16, 56, 56, 64, 64), torch.float32)):
+            ((2, 16, 56, 56, 64, 64), torch.float32),
+            ((16, 16, 56, 56, 64, 64), torch.float32),
+            ((2, 5, 9, 13, 24, 40), torch.float32),
+            ((1, 4, 12, 70, 128, 96), torch.float32)):
         x = torch.randn((N, T, H, W, C), device=device, generator=gen).to(dtype)
         w = torch.randn((3, 3, 3, C, Co), device=device,
                         generator=gen) / math.sqrt(27 * C)
         route = (mod.tensor_core_forward if dtype == torch.bfloat16
-                 else mod.cuda_core_forward)
+                 else mod.split_tf32_forward)
         before = route.launches
         y, s1, s2 = mod.conv3d_bn_stats_forward(x, w)
         if route.launches != before + 1:
@@ -1555,22 +1782,29 @@ def check_conv_kernel(torch, device) -> tuple[dict, dict]:
             float(((s2 - p2).abs() / p_y.float().square().sum(dims)).max())
             / 2)
         exact = float((y == p_y).float().mean())
+        err_abs = float((y.float() - ref_y).abs().max())
         print(f"kernels: conv3d_bn_stats x={(N, T, H, W, C)} Co={Co} {dtype}: "
-              f"y vs float32 conv {err_y:.3e} of the tolerance, s1/s2 vs "
-              f"float64 of own y {err_s:.3e} (rtol {CONV_SUMS_RTOL}), vs plain "
-              f"{err_p:.3e} (rtol {tol}); y equal to the plain version's "
-              f"{exact:.4f} of entries", flush=True)
+              f"y vs float32 conv {err_y:.3e} of the tolerance (max abs "
+              f"{err_abs:.3e}), s1/s2 vs float64 of own y {err_s:.3e} (rtol "
+              f"{CONV_SUMS_RTOL}), vs plain {err_p:.3e} (rtol {tol}); y "
+              f"equal to the plain version's {exact:.4f} of entries",
+              flush=True)
+        cases[f"{(N, T, H, W, C)}->{Co} {str(dtype).split('.')[-1]}"] = {
+            "y_err_over_tol": err_y, "max_abs_err": err_abs,
+            "sums_rel_err": err_s, "sums_vs_plain": err_p}
         if not (err_y <= 1.0 and err_s <= CONV_SUMS_RTOL and err_p <= tol):
             fail(f"conv3d_bn_stats disagrees at x={(N, T, H, W, C)} Co={Co} "
                  f"{dtype}")
         acc = worst[dtype]
         acc[0] = max(acc[0], err_y)
         acc[1] = max(acc[1], err_s)
-        acc[2] = max(acc[2], float((y.float() - ref_y).abs().max()))
+        acc[2] = max(acc[2], err_abs)
         del x, y, y64, ref_y, p_y
     # what neither kernel takes is refused, not run another way
     for shape_x, shape_w, dtype, exc in (
             ((1, 2, 4, 4, 12), (3, 3, 3, 12, 16), torch.bfloat16, ValueError),
+            ((1, 2, 4, 4, 6), (3, 3, 3, 6, 16), torch.float32, ValueError),
+            ((1, 2, 4, 4, 16), (3, 3, 3, 16, 12), torch.float32, ValueError),
             ((1, 2, 4, 4, 16), (3, 3, 3, 16, 16), torch.float16, TypeError)):
         try:
             mod.conv3d_bn_stats_forward(
@@ -1578,7 +1812,7 @@ def check_conv_kernel(torch, device) -> tuple[dict, dict]:
                 torch.zeros(shape_w, device=device))
         except exc:
             continue
-        fail(f"conv3d_bn_stats accepted x {shape_x} {dtype}")
+        fail(f"conv3d_bn_stats accepted x {shape_x} w {shape_w} {dtype}")
 
     entries = {}
     for dtype, sizes in ((torch.bfloat16, (16, 64)), (torch.float32, (16,))):
@@ -1592,13 +1826,12 @@ def check_conv_kernel(torch, device) -> tuple[dict, dict]:
                 memory_format=torch.channels_last_3d)
             bound, bound_by = conv_bound_ms(N, 16, 56, 56, 64, 64,
                                             x.element_size())
-            reps = 3 if dtype == torch.bfloat16 else 1
             row = {
                 "shape": [N, 16, 56, 56, 64], "dtype": str(dtype),
                 # the wrapper's device time (weight packing included), from
                 # CUDA-graph replays; cuDNN with TF32 off for float32
                 "ms": time_cuda_graph(
-                    torch, lambda: mod.conv3d_bn_stats_forward(x, w), reps,
+                    torch, lambda: mod.conv3d_bn_stats_forward(x, w), 3,
                     iters=5),
                 "plain_ms": time_cuda(
                     torch, lambda: mod.conv3d_bn_stats_plain(x, w), 5,
@@ -1608,6 +1841,12 @@ def check_conv_kernel(torch, device) -> tuple[dict, dict]:
                     torch, lambda: torch.nn.functional.conv3d(
                         x_ncdhw, w_ncdhw, padding=1), 5, warmup=1),
                 "bound_ms": bound, "bound_by": bound_by}
+            if dtype == torch.float32:
+                # x alone (205 MB at N=16) is four L2s: the replays above
+                # already read it from device memory
+                row["fma_bound_ms"] = conv_fma_bound_ms(N, 16, 56, 56, 64, 64)
+                row["in_l2_is_out_of_l2"] = True
+                row["bound_share"] = bound / row["ms"]
             if dtype == torch.bfloat16 and N == 16:
                 # out of L2: copies of x and w that hold four L2s with
                 # their outputs, launched in turn
@@ -1632,14 +1871,75 @@ def check_conv_kernel(torch, device) -> tuple[dict, dict]:
     for name, dtype in (("conv3d_bn_stats_bf16", torch.bfloat16),
                         ("conv3d_bn_stats_f32", torch.float32)):
         err_y, err_s, err_abs = worst[dtype]
+        label = str(dtype).split(".")[-1]
         out.append({"name": name, **common,
                     # y against a float32 convolution of the same inputs; the
                     # share of its tolerance (half a bf16 ulp of |y| + 1e-4,
                     # or 1e-4 in float32) it used
                     "max_abs_err": err_abs, "y_err_over_tol": err_y,
-                    "sums_rel_err": err_s, **entries[dtype]})
-    out[0]["sass"] = sass
+                    "sums_rel_err": err_s, **entries[dtype],
+                    "sass": sass["bf16" if dtype == torch.bfloat16 else "f32"],
+                    "cases": {k: v for k, v in cases.items()
+                              if k.endswith(label)}})
     return tuple(out)
+
+
+def diagnose_conv_bf16_margin(torch, device) -> dict:
+    """Why the bf16 route's y sits at 0.97-0.99 of its tolerance (half a
+    bf16 ulp of |y| + 1e-4 against a float32 conv of the same inputs, TF32
+    off; ROADMAP C.6), at (1, 16, 56, 56, 64) -> 64: the five elements
+    nearest their bound with their position, |y|, the float32 value's
+    distance to the nearest bf16 rounding boundary (in bf16 ulps), and
+    cuDNN's bf16 output there; how often cuDNN's bf16 y equals the
+    kernel's, and cuDNN's own share of the same tolerance. Printed only."""
+    from dualvar_tpu_torch.ops import conv_fused as mod
+
+    old = tf32_off(torch)
+    gen = torch.Generator(device=device).manual_seed(6)
+    x = torch.randn((1, 16, 56, 56, 64), device=device,
+                    generator=gen).to(torch.bfloat16)
+    w = torch.randn((3, 3, 3, 64, 64), device=device,
+                    generator=gen) / math.sqrt(27 * 64)
+    y = mod.conv3d_bn_stats_forward(x, w)[0].float()
+    ref = mod.conv3d_bn_stats_plain(x.float(),
+                                    w.to(torch.bfloat16).float())[0]
+    lib = torch.nn.functional.conv3d(
+        x.permute(0, 4, 1, 2, 3),
+        w.permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d),
+        padding=1).permute(0, 2, 3, 4, 1).float()
+    torch.cuda.synchronize()
+    tol = CONV_HALF_ULP * ref.abs() + CONV_ATOL
+    ratio = (y - ref).abs() / tol
+    ulp = bf16_ulp(torch, ref)
+    # the float32 value's distance, in ulps, to the rounding boundary
+    # between its two bf16 neighbours: half an ulp from the nearer one
+    to_boundary = (0.5 - (ref - ref.to(torch.bfloat16).float()).abs()
+                   / ulp).abs()
+    worst = []
+    for i in torch.topk(ratio.flatten(), 5).indices.tolist():
+        idx = tuple(int(v) for v in torch.unravel_index(torch.tensor(i),
+                                                        ratio.shape))
+        worst.append({
+            "n_t_h_w_co": list(idx), "abs_y": float(ref[idx].abs()),
+            "share_of_tol": float(ratio[idx]),
+            "ulps_to_rounding_boundary": float(to_boundary[idx]),
+            "kernel": float(y[idx]), "float32": float(ref[idx]),
+            "cudnn_bf16": float(lib[idx]),
+            "cudnn_rounds_the_same": bool(lib[idx] == y[idx])})
+    out = {"worst": worst,
+           "cudnn_equal_share": float((lib == y).float().mean()),
+           "kernel_share_of_tol": float(ratio.max()),
+           "cudnn_share_of_tol": float(((lib - ref).abs() / tol).max()),
+           # a correctly rounded bf16 y reaches 1.0 of the tolerance less
+           # the 1e-4: half an ulp at the bottom of a binade, |y| = 2**e
+           "elements_over_0.95": int((ratio > 0.95).sum())}
+    print("kernels: conv3d_bn_stats bf16, where y's error against its "
+          "tolerance comes from (C.6): " + json.dumps(out), flush=True)
+    tf32_restore(torch, old)
+    del x, y, ref, lib
+    torch.cuda.empty_cache()
+    return out
 
 
 def smoke_cfg(preset: str, batch_size: int, log_root: str,
@@ -1703,7 +2003,7 @@ def kernel_counters() -> dict:
     those of the bfloat16 compute route)."""
     from dualvar_tpu_torch.ops.aug_fused import aug_fused
     from dualvar_tpu_torch.ops.bn_stats import channel_sums
-    from dualvar_tpu_torch.ops.conv_fused import (cuda_core_forward,
+    from dualvar_tpu_torch.ops.conv_fused import (split_tf32_forward,
                                                   tensor_core_forward)
     from dualvar_tpu_torch.ops.soft_dtw import (soft_dtw_backward,
                                                 soft_dtw_forward)
@@ -1713,7 +2013,7 @@ def kernel_counters() -> dict:
             "soft_dtw_fwd": soft_dtw_forward,
             "soft_dtw_bwd": soft_dtw_backward, "channel_sums": channel_sums,
             "conv3d_bn_stats_bf16": tensor_core_forward,
-            "conv3d_bn_stats_f32": cuda_core_forward}
+            "conv3d_bn_stats_f32": split_tf32_forward}
 
 
 def expected_launches(**counts) -> dict:
@@ -4377,7 +4677,11 @@ def run_path_f(torch, log_root: str) -> dict:
 def main(argv: list[str] | None = None) -> int:
     start = time.perf_counter()
     # --bench-only: the kernels' build, then path B alone (no contract line)
-    bench_only = "--bench-only" in (sys.argv[1:] if argv is None else argv)
+    args = sys.argv[1:] if argv is None else argv
+    bench_only = "--bench-only" in args
+    # --aug-study: the kernels' build, then aug_fused's studies (no contract
+    # line)
+    aug_study = "--aug-study" in args
     import torch
 
     if not torch.cuda.is_available():
@@ -4445,6 +4749,12 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     device = torch.device("cuda")
+    if aug_study:
+        run_aug_study(torch, device)
+        print(f"chip_smoke --aug-study: {time.perf_counter() - start:.1f} s "
+              "from start to end, the kernels' build included", flush=True)
+        print(smi)
+        return 0
     kernels = [check_aug_kernel(torch, device),
                check_aug_bf16_compute(torch, device),
                *check_soft_dtw_kernels(torch, device),
@@ -4517,6 +4827,7 @@ def main(argv: list[str] | None = None) -> int:
         conv = next(k for k in kernels if k["name"] == "conv3d_bn_stats_bf16")
         conv["path_r_layer1"] = check_conv_on_path_r(
             torch, path_r_cfg(8, log_root), r_state)
+        conv["c6_diagnosis"] = diagnose_conv_bf16_margin(torch, device)
         for batch_size in (8, 32):
             time_train_steps(torch, smoke_cfg(
                 "paper_table1_k400", batch_size, log_root))

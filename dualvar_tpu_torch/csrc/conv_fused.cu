@@ -13,7 +13,9 @@
 // to the output dtype, as the TPU kernel does.
 //
 // Bound: operations (2*27*C*Co per output position; at the R3D layer-1 shape
-// (16, 16, 56, 56, 64) that is 1.78e11 against 206 MB of x and y).
+// (16, 16, 56, 56, 64) that is 1.78e11 against 206 MB of x and y in bf16):
+// on the bf16 tensor cores for bf16 x, and three times that on the TF32
+// tensor cores for float32 x (below).
 //
 // Two routes, chosen by the wrapper (ops/conv_fused.py) from x's dtype:
 //
@@ -48,17 +50,35 @@
 //   L2 rate is close to the tensor cores' time; x itself is read from device
 //   memory about once.
 //
-// float32 x: the CUDA-core kernel (conv3d_bn_stats_launch). TF32 would break
-//   the float32 tolerance, so it runs float32 FMAs:
-//   - a block owns one (n, t), HT output rows of h, all of w and a tile of
-//     up to 64 output channels; a thread owns 4 neighbouring w and 8
-//     neighbouring output channels of one row, 32 float32 accumulators;
-//   - the input channels go in chunks of 8: the block stages the chunk's
-//     3 x (HT+2) x (W+2) halo of x and its 27 x 8 x 64 weights in shared
-//     memory (zeros outside x), then every thread does 27 x 8 steps of 4 +
-//     2 x 16-byte shared loads and 32 fused multiply-adds;
-//   - epilogue: y stored 8 channels at a time, the thread's partial sum(y)
-//     and sum(y^2) kept in registers.
+// float32 x: split TF32 on the tensor cores (conv3d_bn_stats_f32_*), the
+//   same implicit GEMM untransposed (D[position][co] = X . W^T, M = 64 w of
+//   an output row, N = 64 output channels, K = 27 * C). One TF32 product
+//   keeps 11 bits, which over K = 1728 terms puts y about 1e-3 from a
+//   float32 conv, ten times the float32 tolerance; so each operand is split
+//   into two tf32 numbers, hi = nearest tf32 and lo = nearest tf32 of the
+//   rest, and y accumulates x_lo w_hi + x_hi w_lo + x_hi w_hi (the lo * lo
+//   term is below float32's precision): about 22 bits a product, at three
+//   times bf16's operations on a tensor-core rate half of bf16's. The
+//   wrapper splits and packs the weight once a call (hi taps, then lo taps);
+//   x is split in registers, so it is wgmma's register operand (A), and the
+//   weight the shared-memory one:
+//   - a block owns 4 output rows x 64 w of one (n, t) and 64 output
+//     channels; warpgroups 0 and 1 each own 2 rows (two 64 x 64 float32
+//     accumulators, 64 registers a thread), warpgroup 2 is the producer;
+//   - a K-step is one (32-channel chunk, dt, dw): one TMA box of x, 6 h rows
+//     x 64 w x 32 channels (128 bytes a position, the 128-byte swizzle; zero
+//     fill for SAME padding and a ragged C), and the hi and lo weights of
+//     the three dh taps; a ring of 2 stages of 96 KB;
+//   - per half chunk and output row, the consumer loads its three box rows
+//     into A fragments with 16-byte shared loads, splits them, and runs 18
+//     wgmma m64n64k8 into a fresh accumulator, small products first, which
+//     it then adds to the row's accumulator (see the kernel for why);
+//   - epilogue: y stored as pairs of channels straight from the
+//     accumulators (8-byte stores, positions w >= W, h >= H masked), the
+//     block's per-channel sums of y in a fixed order.
+//   Why not the bf16 route's shape (x as the shared-memory operand, 8 rows a
+//   block): the tf32 operands from shared memory would need x_lo beside the
+//   box, 208 KB a stage at 8 rows, one stage only.
 //
 // The statistics are where the TPU kernel went wrong (revisited-output
 // accumulation across its 2-D grid). Here nothing is accumulated across
@@ -76,163 +96,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTW = 4;   // output w positions a thread
-constexpr int kTC = 8;   // output channels a thread
-constexpr int kCI = 8;   // input channels a shared-memory chunk
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// 8 consecutive floats stored with two 16-byte stores; p is 16-byte aligned
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = reinterpret_cast<const float4*>(v)[0];
-  reinterpret_cast<float4*>(p)[1] = reinterpret_cast<const float4*>(v)[1];
-}
-
-// grid (N * T * nht, Co / co_tile); dynamic shared memory: the weight chunk
-// (27, kCI, co_tile) then the x halo (3, HT + 2, kCI, Wp), both float32, Wp =
-// 4 * ceil(W / 4) + 2; reused for the per-thread sums at the end.
-// partial: (2, Co, gridDim.x) float32.
-template <typename TW>
-__global__ void __launch_bounds__(kThreads)
-conv3d_bn_stats_kernel(const float* __restrict__ x, const TW* __restrict__ w,
-                       float* __restrict__ y, float* __restrict__ partial,
-                       int N, int Tn, int H, int W, int C, int Co, int HT,
-                       int co_tile) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int nht = (H + HT - 1) / HT;
-  const int nwg = (W + kTW - 1) / kTW;
-  const int Wp = nwg * kTW + 2;
-  const int ncg = co_tile / kTC;
-  float* w_s = smem;                          // (27, kCI, co_tile)
-  float* x_s = smem + 27 * kCI * co_tile;     // (3, HT + 2, kCI, Wp)
-
-  const int blk = blockIdx.x;
-  const int ht = blk % nht;
-  const int t = (blk / nht) % Tn;
-  const int n = blk / (nht * Tn);
-  const int h0 = ht * HT;
-  const int co0 = blockIdx.y * co_tile;
-
-  const int tid = threadIdx.x;
-  const int items = HT * nwg * ncg;
-  const bool active = tid < items;
-  const int cg = tid % ncg;
-  const int wg = (tid / ncg) % nwg;
-  const int hr = tid / (ncg * nwg);
-  const int w0 = wg * kTW;
-
-  float acc[kTW][kTC];
-#pragma unroll
-  for (int k = 0; k < kTW; ++k)
-#pragma unroll
-    for (int j = 0; j < kTC; ++j) acc[k][j] = 0.0f;
-
-  const int x_elems = 3 * (HT + 2) * Wp * kCI;
-  const int w_elems = 27 * kCI * co_tile;
-  for (int c0 = 0; c0 < C; c0 += kCI) {
-    __syncthreads();  // the previous chunk is no longer read
-    // x halo, channel fastest in the read (8 neighbouring channels of a
-    // position are contiguous in x)
-    for (int e = tid; e < x_elems; e += kThreads) {
-      const int ci = e % kCI;
-      int rest = e / kCI;
-      const int ww = rest % Wp;
-      rest /= Wp;
-      const int hh = rest % (HT + 2);
-      const int dt = rest / (HT + 2);
-      const int tt = t + dt - 1, hx = h0 + hh - 1, wx = ww - 1, c = c0 + ci;
-      float v = 0.0f;
-      if (tt >= 0 && tt < Tn && hx >= 0 && hx < H && wx >= 0 && wx < W &&
-          c < C)
-        v = x[((((int64_t)n * Tn + tt) * H + hx) * W + wx) * C + c];
-      x_s[((dt * (HT + 2) + hh) * kCI + ci) * Wp + ww] = v;
-    }
-    // weights of the chunk, in float32 as the convolution uses them
-    for (int e = tid; e < w_elems; e += kThreads) {
-      const int co = e % co_tile;
-      const int rest = e / co_tile;
-      const int ci = rest % kCI;
-      const int tap = rest / kCI;
-      const int c = c0 + ci;
-      float v = 0.0f;
-      if (c < C)
-        v = to_f(w[((int64_t)tap * C + c) * Co + co0 + co]);
-      w_s[e] = v;
-    }
-    __syncthreads();
-    if (active) {
-      for (int tap = 0; tap < 27; ++tap) {
-        const int dt = tap / 9, dh = (tap / 3) % 3, dw = tap % 3;
-        const float* xrow = x_s + (dt * (HT + 2) + hr + dh) * kCI * Wp + w0 + dw;
-        const float* wrow = w_s + tap * kCI * co_tile + cg * kTC;
-#pragma unroll
-        for (int ci = 0; ci < kCI; ++ci) {
-          float xv[kTW];
-#pragma unroll
-          for (int k = 0; k < kTW; ++k) xv[k] = xrow[ci * Wp + k];
-          const float4 wa = *reinterpret_cast<const float4*>(wrow + ci * co_tile);
-          const float4 wb =
-              *reinterpret_cast<const float4*>(wrow + ci * co_tile + 4);
-          const float wv[kTC] = {wa.x, wa.y, wa.z, wa.w,
-                                 wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int k = 0; k < kTW; ++k)
-#pragma unroll
-            for (int j = 0; j < kTC; ++j)
-              acc[k][j] = fmaf(xv[k], wv[j], acc[k][j]);
-        }
-      }
-    }
-  }
-
-  // epilogue: store, and sum the stored values
-  float s1[kTC], s2[kTC];
-#pragma unroll
-  for (int j = 0; j < kTC; ++j) s1[j] = s2[j] = 0.0f;
-  const int h = h0 + hr;
-  if (active && h < H) {
-#pragma unroll
-    for (int k = 0; k < kTW; ++k) {
-      if (w0 + k >= W) continue;
-      alignas(16) float out[kTC];
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) {
-        out[j] = acc[k][j];
-        s1[j] += out[j];
-        s2[j] = fmaf(out[j], out[j], s2[j]);
-      }
-      store8(y + ((((int64_t)n * Tn + t) * H + h) * W + w0 + k) * Co + co0 +
-                 cg * kTC,
-             out);
-    }
-  }
-  __syncthreads();  // the chunk buffers are free
-  float* red = smem;  // (2, kThreads, kTC)
-#pragma unroll
-  for (int j = 0; j < kTC; ++j) {
-    red[tid * kTC + j] = s1[j];
-    red[(kThreads + tid) * kTC + j] = s2[j];
-  }
-  __syncthreads();
-  // one thread a channel of the tile adds the threads of its channel group
-  // (tid % ncg == cg) in order
-  if (tid < co_tile) {
-    const int g = tid / kTC, j = tid % kTC;
-    float t1 = 0.0f, t2 = 0.0f;
-    for (int i = g; i < kThreads; i += ncg) {
-      t1 += red[i * kTC + j];
-      t2 += red[(kThreads + i) * kTC + j];
-    }
-    const int64_t c = co0 + tid;
-    partial[c * gridDim.x + blk] = t1;
-    partial[((int64_t)Co + c) * gridDim.x + blk] = t2;
-  }
-}
+constexpr int kThreads = 256;  // the statistics kernel
 
 // sum of v over the block in a fixed order
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
@@ -258,25 +122,6 @@ stats_finish_kernel(const float* __restrict__ partial, float* __restrict__ s1,
   for (int i = threadIdx.x; i < nblk; i += kThreads) v += p[i];
   v = block_sum(v, scratch);
   if (threadIdx.x == 0) (k == 0 ? s1 : s2)[c] = v;
-}
-
-template <typename TW>
-int launch_typed(const void* x, const void* w, void* y, float* partial,
-                 float* s1, float* s2, int N, int Tn, int H, int W, int C,
-                 int Co, int HT, int co_tile, size_t smem,
-                 cudaStream_t stream) {
-  auto kernel = conv3d_bn_stats_kernel<TW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nht = (H + HT - 1) / HT;
-  const dim3 grid((unsigned)((int64_t)N * Tn * nht), Co / co_tile);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const TW*>(w),
-      static_cast<float*>(y), partial, N, Tn, H, W, C, Co, HT, co_tile);
-  stats_finish_kernel<<<dim3(Co, 2), kThreads, 0, stream>>>(
-      partial, s1, s2, Co, (int)grid.x);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -619,6 +464,315 @@ conv3d_bn_stats_tc_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 route: split-TF32 implicit GEMM on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kFC = 32;        // input channels a K-step: 128 bytes, one swizzle row
+constexpr int kFW = 64;        // output w positions of a box row: the wgmma M
+constexpr int kFCo = 64;       // output channels a block: the wgmma N
+constexpr int kFRowsWG = 2;    // output rows a consumer warpgroup
+constexpr int kFConsumers = 2;
+constexpr int kFRows = kFRowsWG * kFConsumers;  // output rows a block: 4
+constexpr int kFStages = 2;
+constexpr int kFThreads = 128 * (kFConsumers + 1);
+constexpr int kFRowBytes = kFW * kFC * 4;             // one h row of a box
+constexpr int kFXBytes = (kFRows + 2) * kFRowBytes;   // the box: band + halo
+constexpr int kFWTapBytes = kFCo * kFC * 4;           // one tap's weights
+constexpr int kFWBytes = 2 * 3 * kFWTapBytes;         // 3 dh taps, hi and lo
+constexpr int kFStageBytes = kFXBytes + kFWBytes;
+constexpr int kFSmem = kFStages * kFStageBytes + 1024;  // + 1024-B alignment
+static_assert(kFSmem <= 232448, "two stages fit a block's shared memory");
+
+// the tf32 number nearest to x (ties away from zero), as a float32 bit
+// pattern with its 13 low mantissa bits zero: the bit rule the wrapper's
+// split of the weight uses too (ops/conv_fused.py:_tf32)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// d (64 x 64, float32) = a (64 x 8, tf32 in registers) * b (64 x 8)^T (tf32,
+// K-major in shared memory) + (scale_d ? d : 0). a: this thread's a0..a3,
+// rows 16 warp + lane/4 (+8 for a1, a3), columns lane%4 (+4 for a2, a3) of
+// the warpgroup's tile
+__device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// One block: output channels co0..co0+63 of rows h0..h0+3, w0..w0+63 of one
+// (n, t). Warpgroups 0 and 1 consume (rows 2g, 2g+1 each), warpgroup 2 is
+// the producer (one thread issues the TMA loads).
+//
+// K-steps, in the same order on both sides: for each 32-channel chunk c0,
+// each dt whose frame t + dt - 1 exists, each dw: ONE box of x, rows h0 - 1
+// .. h0 + 4 (6 h rows) x w0 + dw - 1 .. w0 + dw + 62 x 32 channels, and the
+// hi and lo weights of the three taps (dt, dh, dw), dh = 0, 1, 2. Output row
+// r with tap dh reads box row r + dh.
+//
+// x is the register operand: for each half of a stage's chunk (two K-steps
+// of 8) and each of its output rows, a consumer reads the row's three box
+// rows straight into wgmma's A layout (two 16-byte loads a row and thread),
+// splits each value into x_hi = tf32_rna(x) and x_lo = tf32_rna(x - x_hi)
+// in registers, and runs one chain of wgmma into a fresh accumulator
+// ``part``: the 12 small products (x_lo w_hi, x_hi w_lo) of the two K-steps
+// and three dh taps first, then the 6 large ones (x_hi w_hi). ``part`` is
+// then added to the row's accumulator on the CUDA cores. The tensor cores
+// add each product group to their accumulator with truncation toward zero,
+// so 648 chained groups (K = 1728) drifted y by up to 7e-5 and its sum of
+// squares by 1e-5 relative; a chain of 18 whose small terms come first
+// truncates only against the half-chunk's partial sum, which the float32
+// add then rounds to nearest. A thread's 16-byte load covers channels 8
+// (lane % 4) + 4 half .. + 3 of one position, so K-step k8 = 2 half + s of a
+// chunk takes channel 8 j + 2 k8 into column j < 4 and 8 (j - 4) + 2 k8 + 1
+// into column j >= 4: the wrapper packs the weight's channels in that order
+// (ops/conv_fused.py:_f32_k_order), so the products are the convolution's.
+// With the 128-byte swizzle, the eight lanes of each quarter-warp load hit
+// eight different 16-byte bank groups.
+//
+// partial: (2, Co, gridDim.x) float32, this block's per-channel sums of y
+// over its valid positions.
+__global__ void __launch_bounds__(kFThreads, 1)
+conv3d_bn_stats_f32_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap wmap,
+                           float* __restrict__ y, float* __restrict__ partial,
+                           int Tn, int H, int W, int Co, int nchunk) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kFStages];
+  __shared__ __align__(8) uint64_t empty_bar[kFStages];
+  __shared__ float red[2][kFConsumers * 4][kFCo];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+
+  const int nwt = (W + kFW - 1) / kFW;
+  const int nhb = (H + kFRows - 1) / kFRows;
+  int blk = blockIdx.x;
+  const int wt = blk % nwt;
+  blk /= nwt;
+  const int hb = blk % nhb;
+  blk /= nhb;
+  const int t = blk % Tn;
+  const int n = blk / Tn;
+  const int h0 = hb * kFRows, w0 = wt * kFW, co0 = blockIdx.y * kFCo;
+  const int dt_lo = t == 0 ? 1 : 0;
+  const int dt_hi = t == Tn - 1 ? 1 : 2;
+  const int ndt = dt_hi - dt_lo + 1;
+  const int nsteps = nchunk * ndt * 3;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < kFStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], kFConsumers * 4);  // a warp of each consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kFConsumers) {
+    // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid == kFConsumers * 128) {
+      for (int s = 0; s < nsteps; ++s) {
+        const int stage = s % kFStages;
+        mbar_wait(&empty_bar[stage], ((s / kFStages) & 1) ^ 1);
+        const int dw = s % 3;
+        const int dt = dt_lo + (s / 3) % ndt;
+        const int c0 = (s / (3 * ndt)) * kFC;
+        uint8_t* xs = smem + stage * kFStageBytes;
+        const int tap = (dt * 3 + dw) * 3;
+        mbar_expect_tx(&full_bar[stage], kFStageBytes);
+        tma_load_5d(xs, &xmap, &full_bar[stage], c0, w0 + dw - 1, h0 - 1,
+                    t + dt - 1, n);
+        tma_load_3d(xs + kFXBytes, &wmap, &full_bar[stage], c0, co0, tap);
+        tma_load_3d(xs + kFXBytes + 3 * kFWTapBytes, &wmap, &full_bar[stage],
+                    c0, co0, 27 + tap);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows h0 + 2 wg, h0 + 2 wg + 1
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int p0 = 16 * warp + g;  // positions p0 and p0 + 8 of the box row
+  float acc[kFRowsWG][32], part[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    part[i] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kFRowsWG; ++r) acc[r][i] = 0.0f;
+  }
+
+  for (int s = 0; s < nsteps; ++s) {
+    const int stage = s % kFStages;
+    mbar_wait(&full_bar[stage], (s / kFStages) & 1);
+    const uint32_t xs = smem_u32(smem + stage * kFStageBytes) +
+                        wg * kFRowsWG * kFRowBytes;
+    const uint32_t ws = smem_u32(smem + stage * kFStageBytes + kFXBytes);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t chunk = (uint32_t)(((2 * q + half) ^ g) << 4);
+#pragma unroll
+      for (int r = 0; r < kFRowsWG; ++r) {
+        // A fragments of box rows r + dh for K-steps 2 half and 2 half + 1
+        uint32_t hi[3][2][4], lo[3][2][4];
+#pragma unroll
+        for (int dh = 0; dh < 3; ++dh) {
+          const uint32_t row = xs + (r + dh) * kFRowBytes + chunk;
+          const float4 v0 = lds128(row + p0 * 128);
+          const float4 v1 = lds128(row + (p0 + 8) * 128);
+          const float v[2][4] = {{v0.x, v1.x, v0.y, v1.y},
+                                 {v0.z, v1.z, v0.w, v1.w}};
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              hi[dh][k][i] = tf32_rna(v[k][i]);
+              lo[dh][k][i] =
+                  tf32_rna(v[k][i] - __uint_as_float(hi[dh][k][i]));
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fence_operand(part[i]);
+        wgmma_fence();
+        // part = this (row, half)'s 24 K terms: the small products first,
+        // from zero, then the large ones
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int dh = 0; dh < 3; ++dh) {
+            const uint32_t koff = (uint32_t)(2 * half + k) * 32;
+            wgmma_tf32_m64n64k8(part, lo[dh][k],
+                                sw128_desc(ws + dh * kFWTapBytes + koff),
+                                k + dh > 0);
+            wgmma_tf32_m64n64k8(part, hi[dh][k],
+                                sw128_desc(ws + (3 + dh) * kFWTapBytes + koff),
+                                1);
+          }
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int dh = 0; dh < 3; ++dh) {
+            const uint32_t koff = (uint32_t)(2 * half + k) * 32;
+            wgmma_tf32_m64n64k8(part, hi[dh][k],
+                                sw128_desc(ws + dh * kFWTapBytes + koff), 1);
+          }
+        wgmma_commit();
+        // the fragments are read and the products done before the
+        // registers are reused (see the bfloat16 kernel on keeping a group
+        // in flight)
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fence_operand(part[i]);
+#pragma unroll
+        for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              fence_operand(hi[dh][k][i]);
+              fence_operand(lo[dh][k][i]);
+            }
+        // the tensor cores add a product group to their accumulator with
+        // truncation; summed into the row's accumulator here, each group's
+        // sum is rounded to nearest once
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[r][i] += part[i];
+      }
+    }
+    if (lane == 0) mbar_arrive(&empty_bar[stage]);
+  }
+
+  // epilogue: accumulator i of this thread is position p0 + 8 ((i >> 1) &
+  // 1), channel 8 (i >> 2) + 2 q + (i & 1); pairs of channels are stored as
+  // 8-byte stores, and summed in a fixed order
+  float s1[16], s2[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s1[j] = s2[j] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kFRowsWG; ++r) {
+    const int h = h0 + wg * kFRowsWG + r;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int w = w0 + p0 + 8 * ((i >> 1) & 1);
+      const int co = co0 + 8 * (i >> 2) + 2 * q;
+      if (h < H && w < W && co < Co) {
+        const float a = acc[r][i], b = acc[r][i + 1];
+        *reinterpret_cast<float2*>(
+            y + ((((int64_t)n * Tn + t) * H + h) * W + w) * Co + co) =
+            make_float2(a, b);
+        const int j = 2 * (i >> 2);
+        s1[j] += a;
+        s2[j] = fmaf(a, a, s2[j]);
+        s1[j + 1] += b;
+        s2[j + 1] = fmaf(b, b, s2[j + 1]);
+      }
+    }
+  }
+  // the 8 lanes of a channel group (same q) in a fixed tree, then the
+  // warps of both consumers in order
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      s1[j] += __shfl_xor_sync(0xffffffffu, s1[j], off);
+      s2[j] += __shfl_xor_sync(0xffffffffu, s2[j], off);
+    }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 8 * (j >> 1) + 2 * q + (j & 1);
+      red[0][wg * 4 + warp][c] = s1[j];
+      red[1][wg * 4 + warp][c] = s2[j];
+    }
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(kFConsumers * 128) : "memory");
+  if (tid < kFCo && co0 + tid < Co) {
+    float t1 = 0.0f, t2 = 0.0f;
+    for (int k = 0; k < kFConsumers * 4; ++k) {
+      t1 += red[0][k][tid];
+      t2 += red[1][k][tid];
+    }
+    const int64_t ch = co0 + tid;
+    partial[ch * gridDim.x + blockIdx.x] = t1;
+    partial[((int64_t)Co + ch) * gridDim.x + blockIdx.x] = t2;
+  }
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   void*, const cuuint64_t*, const cuuint64_t*,
                                   const cuuint32_t*, const cuuint32_t*,
@@ -645,43 +799,21 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// bf16 tensor map with the 128-byte swizzle; dims and box innermost first,
-// strides in bytes of dims 1.. ; returns its CUresult
-CUresult encode_bf16(CUtensorMap* map, const void* base, int rank,
-                     const cuuint64_t* dims, const cuuint64_t* strides,
-                     const cuuint32_t* box) {
+// tensor map of ``dtype`` with the 128-byte swizzle; dims and box innermost
+// first, strides in bytes of dims 1.. ; returns its CUresult
+CUresult encode_map(CUtensorMap* map, CUtensorMapDataType dtype,
+                    const void* base, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-            const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), dims,
+            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace
-
-// float32 route. x (N, T, H, W, C) float32 and y (N, T, H, W, Co) float32
-// contiguous; w (3, 3, 3, C, Co) contiguous, w_dtype 0 float32 / 1
-// bfloat16. HT rows a block, co_tile output channels a block (8, 16, 32 or
-// 64, dividing Co), chosen by the wrapper with HT * ceil(W/4) * co_tile / 8
-// <= 256 threads; smem bytes of dynamic shared memory. partial: float32
-// (2, Co, N * T * ceil(H / HT)) scratch; s1, s2: float32 (Co,). Returns
-// cudaGetLastError() (or the error of raising the shared-memory limit).
-extern "C" int conv3d_bn_stats_launch(const void* x, const void* w, void* y,
-                                      float* partial, float* s1, float* s2,
-                                      int w_dtype, int N, int Tn, int H, int W,
-                                      int C, int Co, int HT, int co_tile,
-                                      int64_t smem, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t bytes = (size_t)smem;
-  if (w_dtype == 0)
-    return launch_typed<float>(x, w, y, partial, s1, s2, N, Tn, H, W, C, Co,
-                               HT, co_tile, bytes, stream);
-  return launch_typed<__nv_bfloat16>(x, w, y, partial, s1, s2, N, Tn, H, W, C,
-                                     Co, HT, co_tile, bytes, stream);
-}
 
 // bfloat16 route. x (N, T, H, W, C) bf16 contiguous, 16-byte aligned, C % 8
 // == 0; wp the packed weight, bf16 (27, co_pad, 64 * nchunk) contiguous,
@@ -703,13 +835,13 @@ extern "C" int conv3d_bn_stats_tc_launch(const void* x, const void* wp,
   const cuuint64_t xstrides[4] = {e * C, e * C * W, e * C * W * H,
                                   e * C * W * H * Tn};
   const cuuint32_t xbox[5] = {kTcC, kTcW, kTcRows + 2, 1, 1};
-  CUresult r = encode_bf16(&xmap, x, 5, xdims, xstrides, xbox);
+  CUresult r = encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 5, xdims, xstrides, xbox);
   if (r != CUDA_SUCCESS) return 100000 + (int)r;
   const cuuint64_t cpad = (cuuint64_t)nchunk * kTcC;
   const cuuint64_t wdims[3] = {cpad, (cuuint64_t)co_pad, 27};
   const cuuint64_t wstrides[2] = {e * cpad, e * cpad * co_pad};
   const cuuint32_t wbox[3] = {kTcC, kTcCo, 3};
-  r = encode_bf16(&wmap, wp, 3, wdims, wstrides, wbox);
+  r = encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wp, 3, wdims, wstrides, wbox);
   if (r != CUDA_SUCCESS) return 100000 + (int)r;
 
   cudaError_t err = cudaFuncSetAttribute(
@@ -721,6 +853,51 @@ extern "C" int conv3d_bn_stats_tc_launch(const void* x, const void* wp,
   conv3d_bn_stats_tc_kernel<<<grid, kTcThreads, kTcSmem, stream>>>(
       xmap, wmap, static_cast<__nv_bfloat16*>(y), partial, Tn, H, W, Co,
       nchunk);
+  stats_finish_kernel<<<dim3(Co, 2), kThreads, 0, stream>>>(
+      partial, s1, s2, Co, (int)grid.x);
+  return (int)cudaGetLastError();
+}
+
+// float32 route. x (N, T, H, W, C) float32 contiguous, 16-byte aligned, C %
+// 4 == 0; wp the packed split weight, float32 (54, co_pad, 32 * nchunk)
+// contiguous: taps ordered (dt, dw, dh), the tf32 hi parts at 0..26 and the
+// lo parts at 27..53, each 32-channel chunk in the kernel's K order, zero
+// where c >= C or o >= Co; y (N, T, H, W, Co) float32, Co % 8 == 0; co_pad
+// a multiple of 64. partial: float32 (2, Co, N * T * ceil(H / 4) *
+// ceil(W / 64)) scratch; s1, s2: float32 (Co,). Returns 0, a CUDA runtime
+// error, or 100000 + the CUresult of encoding a tensor map.
+extern "C" int conv3d_bn_stats_f32_launch(const void* x, const void* wp,
+                                          void* y, float* partial, float* s1,
+                                          float* s2, int N, int Tn, int H,
+                                          int W, int C, int Co, int co_pad,
+                                          int nchunk, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  CUtensorMap xmap, wmap;
+  const cuuint64_t e = 4;  // bytes of a float32
+  const cuuint64_t xdims[5] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                               (cuuint64_t)Tn, (cuuint64_t)N};
+  const cuuint64_t xstrides[4] = {e * C, e * C * W, e * C * W * H,
+                                  e * C * W * H * Tn};
+  const cuuint32_t xbox[5] = {kFC, kFW, kFRows + 2, 1, 1};
+  CUresult r = encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, 5, xdims,
+                          xstrides, xbox);
+  if (r != CUDA_SUCCESS) return 100000 + (int)r;
+  const cuuint64_t cpad = (cuuint64_t)nchunk * kFC;
+  const cuuint64_t wdims[3] = {cpad, (cuuint64_t)co_pad, 54};
+  const cuuint64_t wstrides[2] = {e * cpad, e * cpad * co_pad};
+  const cuuint32_t wbox[3] = {kFC, kFCo, 3};
+  r = encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, wp, 3, wdims,
+                 wstrides, wbox);
+  if (r != CUDA_SUCCESS) return 100000 + (int)r;
+
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3d_bn_stats_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int nwt = (W + kFW - 1) / kFW, nhb = (H + kFRows - 1) / kFRows;
+  const dim3 grid((unsigned)((int64_t)N * Tn * nhb * nwt), co_pad / kFCo);
+  conv3d_bn_stats_f32_kernel<<<grid, kFThreads, kFSmem, stream>>>(
+      xmap, wmap, static_cast<float*>(y), partial, Tn, H, W, Co, nchunk);
   stats_finish_kernel<<<dim3(Co, 2), kThreads, 0, stream>>>(
       partial, s1, s2, Co, (int)grid.x);
   return (int)cudaGetLastError();

@@ -23,7 +23,10 @@ normalise; cast. All randomness is drawn outside and passed in.
 kernel: float32, or bfloat16, where every plane op is rounded to bfloat16
 where the JAX kernel's bfloat16 mode rounds it (hue, the contrast mean's sum
 and the blur's passes run in float32 on the bfloat16 planes, each result
-rounded once; ``aug_fused_plain_bf16``).
+rounded once; ``aug_fused_plain_bf16``). The kernel's bfloat16 route holds
+two pixels a register and runs the colour chain, the gray and the
+normalisation as packed bfloat16 pair ops, each rounded once as the float32
+op and its round to bfloat16 are; it stages its planes as bfloat16.
 
 Bound: bytes. Per clip the function reads 3*T*S*S bytes and writes
 3*T*S*S*sizeof(out): 0.60 MB + 2.41 MB (f32 out) or 1.20 MB (bf16 out) at

@@ -15,7 +15,8 @@ A ``channels_last_3d`` ``(N, C, T, H, W)`` map ``.permute(0, 2, 3, 4, 1)``
 is this x without a copy.
 
 Bound: operations, ``2*27*C*Co`` an output position (1.78e11 at the R3D
-layer-1 shape (16, 16, 56, 56, 64)).
+layer-1 shape (16, 16, 56, 56, 64)): on the bf16 tensor cores for bf16 x,
+three times that on the TF32 tensor cores for float32 x.
 
 Routes on the card, by x's dtype (``_route``):
 
@@ -24,8 +25,17 @@ Routes on the card, by x's dtype (``_route``):
   weight is packed once a call by ``pack_weight`` into bf16 (27, Co_pad,
   C_pad); TMA's zero fill pads a ragged C and x's borders, Co is padded in
   the packed weight and masked at the store.
-- float32 x with Co % 8 == 0: ``cuda_core_forward``, float32 FMAs on the CUDA
-  cores (TF32 would break the float32 tolerance).
+- float32 x with C % 4 == 0 and Co % 8 == 0 (TMA's 16-byte strides):
+  ``split_tf32_forward``, the same implicit GEMM in split TF32 (3xTF32):
+  x = x_hi + x_lo and w = w_hi + w_lo, each part a tf32 number
+  (``_tf32``: nearest, ties away from zero), and y accumulates x_lo w_hi +
+  x_hi w_lo + x_hi w_hi in float32 on the tensor cores. That keeps about 22
+  bits of each product, float32's accuracy against a float32 conv; one TF32
+  product (x_hi w_hi alone) keeps 11, which over K = 27 C = 1728 terms puts
+  y some 1e-3 off, ten times the float32 tolerance. The weight is split and
+  packed once a call by ``pack_weight_split`` (54, Co_pad, C_pad): hi taps,
+  then lo taps, each 32-channel chunk in the kernel's K order
+  (``_f32_k_order``); x is split in the kernel's registers.
 - anything else raises. No route falls back to another or to the plain
   version.
 
@@ -47,14 +57,17 @@ import torch
 
 from .build import load_library
 
-# CUDA-core route: kThreads, kTW, kTC, kCI of csrc/conv_fused.cu
-_THREADS = 256
-_TW, _TC, _CI = 4, 8, 8
-# tensor-core route: kTcC, kTcW, kTcCo, kTcRows (channels a K-step, w of a
+# float32 route: kFC, kFW, kFCo, kFRows, kFSmem of csrc/conv_fused.cu
+# (channels a K-step, w of a box row, output channels a block, output rows a
+# block, dynamic shared memory: two stages of a 6-row box and 3 taps' hi and
+# lo weights, 96 KB each)
+_F32_C, _F32_W, _F32_CO, _F32_ROWS = 32, 64, 64, 4
+_F32_SMEM = 2 * ((_F32_ROWS + 2) * _F32_W + 6 * _F32_CO) * _F32_C * 4 + 1024
+# bfloat16 route: kTcC, kTcW, kTcCo, kTcRows (channels a K-step, w of a
 # band row, output channels a block, output rows a block)
 _TC_C, _TC_W, _TC_CO, _TC_ROWS = 64, 64, 64, 8
 _MAX_SMEM = 232448  # bytes of shared memory a block may use
-_W_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_W_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _ncdhw_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -84,8 +97,8 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def _route(x: torch.Tensor, w: torch.Tensor) -> str:
-    """Which kernel takes (x, w) on the card: "tensor_cores" or
-    "cuda_cores"; raises on what neither takes."""
+    """Which kernel takes (x, w) on the card: "tensor_cores" (bf16) or
+    "split_tf32" (float32); raises on what neither takes."""
     C, Co = x.shape[4], w.shape[4]
     if w.dtype not in _W_DTYPES:
         raise TypeError(f"w must be float32 or bfloat16, got {w.dtype}")
@@ -95,32 +108,48 @@ def _route(x: torch.Tensor, w: torch.Tensor) -> str:
                              "multiples of 8 (16-byte TMA strides)")
         return "tensor_cores"
     if x.dtype == torch.float32:
-        if Co % _TC:
-            raise ValueError(f"Co={Co}: the float32 kernel takes multiples "
-                             f"of {_TC}")
-        return "cuda_cores"
+        if C % 4 or Co % 8:
+            raise ValueError(f"C={C}, Co={Co}: the float32 kernel takes C a "
+                             "multiple of 4 and Co of 8 (16-byte TMA "
+                             "strides)")
+        return "split_tf32"
     raise TypeError(f"x must be bfloat16 or float32 on the card, got "
                     f"{x.dtype}")
 
 
-def _tiling(W: int, Co: int) -> tuple[int, int, int]:
-    """CUDA-core route: (rows a block, output channels a block, shared-memory
-    bytes), at most one 4 x 8 output tile a thread."""
-    co_tile = next(t for t in (64, 32, 16, 8) if Co % t == 0)
-    nwg = -(-W // _TW)
-    ht = 2
-    while ht * nwg * (co_tile // _TC) > _THREADS:
-        if ht > 1:
-            ht = 1
-        elif co_tile > _TC:
-            co_tile //= 2
-        else:
-            raise ValueError(f"W={W} is too wide for the kernel's tiling")
-    smem = 4 * max(27 * _CI * co_tile + 3 * (ht + 2) * _CI * (nwg * _TW + 2),
-                   2 * _THREADS * _TC)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"W={W}: {smem} bytes of shared memory a block")
-    return ht, co_tile, smem
+def _f32_plan(N: int, T: int, H: int, W: int, C: int,
+              Co: int) -> tuple[int, int, int]:
+    """float32 route: (32-channel chunks of C, Co padded to the block's 64
+    channels, blocks along the positions). A block owns 4 output rows x 64
+    w of one (n, t); the grid's second axis is ``Co_pad // 64``."""
+    nchunk = -(-C // _F32_C)
+    co_pad = -(-Co // _F32_CO) * _F32_CO
+    grid_x = N * T * -(-H // _F32_ROWS) * -(-W // _F32_W)
+    return nchunk, co_pad, grid_x
+
+
+def _f32_k_order(device=None) -> torch.Tensor:
+    """The float32 kernel's K order inside a 32-channel chunk: packed
+    position 8 k + j (K-step k of 8, wgmma column j) holds channel 8 (j % 4)
+    + 2 k + j // 4, the channel a thread's 16-byte load of x puts in that
+    column. Made on ``device`` (no host copy: a CUDA graph may capture
+    it)."""
+    q = torch.arange(_F32_C, device=device)
+    return 8 * (q % 8 % 4) + 2 * (q // 8) + q % 8 // 4
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """The tf32 number nearest to each float32 of ``v`` (ties away from
+    zero), the bit rule of the kernel's ``tf32_rna``."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) = (tf32(v), tf32(v - hi)), float32 tensors of tf32 numbers:
+    hi + lo is v within about 2**-22 of |v|."""
+    hi = _tf32(v)
+    return hi, _tf32(v - hi)
 
 
 def _tc_plan(N: int, T: int, H: int, W: int, C: int,
@@ -146,18 +175,29 @@ def pack_weight(w: torch.Tensor, c_pad: int, co_pad: int,
         taps, (0, c_pad - C, 0, co_pad - Co)).contiguous()
 
 
+def pack_weight_split(w: torch.Tensor, c_pad: int,
+                      co_pad: int) -> torch.Tensor:
+    """(3, 3, 3, C, Co) -> (54, co_pad, c_pad) float32 for the float32
+    route: ``pack_weight``'s taps of ``split_tf32(w)``'s hi parts, then of
+    its lo parts, the channels of each 32-channel chunk in ``_f32_k_order``.
+    884 KB at C = Co = 64."""
+    hi, lo = split_tf32(w.float())
+    idx = (torch.arange(0, c_pad, _F32_C, device=w.device)[:, None]
+           + _f32_k_order(w.device)).reshape(-1)
+    taps = torch.cat([pack_weight(p, c_pad, co_pad, torch.float32)
+                      for p in (hi, lo)])
+    return taps.index_select(2, idx).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels():
     lib = load_library("conv_fused")
-    cuda_cores = lib.conv3d_bn_stats_launch
-    cuda_cores.restype = ctypes.c_int
-    cuda_cores.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                           + [ctypes.c_int64, ctypes.c_void_p])
-    tensor_cores = lib.conv3d_bn_stats_tc_launch
-    tensor_cores.restype = ctypes.c_int
-    tensor_cores.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                             + [ctypes.c_void_p])
-    return cuda_cores, tensor_cores
+    fns = (lib.conv3d_bn_stats_f32_launch, lib.conv3d_bn_stats_tc_launch)
+    for fn in fns:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+    return fns
 
 
 def _outputs(x: torch.Tensor, Co: int):
@@ -199,29 +239,33 @@ def tensor_core_forward(x: torch.Tensor, w: torch.Tensor):
     return y, s1, s2
 
 
-def cuda_core_forward(x: torch.Tensor, w: torch.Tensor):
-    """The float32 route on the card: (y, s1, s2) from the CUDA-core
-    kernel. x float32 contiguous, Co a multiple of 8."""
+def split_tf32_forward(x: torch.Tensor, w: torch.Tensor):
+    """The float32 route on the card: (y, s1, s2) from the split-TF32
+    wgmma kernel. x float32 contiguous, C a multiple of 4 and Co of 8, x
+    16-byte aligned."""
     N, T, H, W, C = x.shape
     Co = w.shape[4]
-    ht, co_tile, smem = _tiling(W, Co)
+    nchunk, co_pad, grid_x = _f32_plan(N, T, H, W, C, Co)
     y, s1, s2 = _outputs(x, Co)
-    nblk = N * T * -(-H // ht)
-    if nblk == 0 or Co == 0:
+    if grid_x == 0 or Co == 0:
         return y, s1.zero_(), s2.zero_()
-    partial = torch.empty((2, Co, nblk), dtype=torch.float32, device=x.device)
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (TMA)")
+    wp = pack_weight_split(w, nchunk * _F32_C, co_pad)
+    partial = torch.empty((2, Co, grid_x), dtype=torch.float32,
+                          device=x.device)
     with torch.cuda.device(x.device):
         err = _kernels()[0](
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), partial.data_ptr(),
-            s1.data_ptr(), s2.data_ptr(), _W_DTYPES[w.dtype], N, T, H, W, C,
-            Co, ht, co_tile, smem, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "CUDA-core")
-    cuda_core_forward.launches += 1
+            x.data_ptr(), wp.data_ptr(), y.data_ptr(), partial.data_ptr(),
+            s1.data_ptr(), s2.data_ptr(), N, T, H, W, C, Co, co_pad, nchunk,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "split-TF32")
+    split_tf32_forward.launches += 1
     return y, s1, s2
 
 
 tensor_core_forward.launches = 0
-cuda_core_forward.launches = 0
+split_tf32_forward.launches = 0
 
 
 def conv3d_bn_stats_forward(x: torch.Tensor, w: torch.Tensor):
@@ -238,7 +282,7 @@ def conv3d_bn_stats_forward(x: torch.Tensor, w: torch.Tensor):
                          "(3, 3, 3, C, Co)")
     if route == "tensor_cores":
         return tensor_core_forward(x, w)
-    return cuda_core_forward(x, w)
+    return split_tf32_forward(x, w)
 
 
 def conv3d_bn_stats_backward(x, w, y, gy, gs1, gs2):

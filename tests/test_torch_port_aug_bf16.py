@@ -189,3 +189,202 @@ def test_fused_compute_is_threaded_through_both_pipelines():
             classifier_train_batch(
                 torch.Generator(), clips,
                 AugConfig(img_dim=SIZE, seq_len=T, fused_compute=bad))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's pair arithmetic (csrc/aug_fused.cu, aug_bf16_band_kernel)
+# ---------------------------------------------------------------------------
+
+def _round_bf16_exact(v: np.ndarray) -> np.ndarray:
+    """float64 values rounded once to the nearest bfloat16 (8 significant
+    bits, ties to even): what ``mul.rn.bf16x2`` / ``add.rn.bf16x2`` make of
+    the exact product or sum. Normal range only."""
+    m, e = np.frexp(v)
+    return np.ldexp(np.round(m * 256.0), e - 8)
+
+
+def _bf16_values(rng, n, lo, hi):
+    return torch.from_numpy(rng.uniform(lo, hi, n).astype(np.float32)).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("op", ["mul", "add"])
+def test_pair_ops_round_as_the_float32_op_then_bfloat16(op):
+    """The kernel's ``mul2`` / ``add2`` round the exact product or sum of
+    two bfloat16 numbers once; the JAX kernel's bfloat16 mode (and
+    ``aug_fused_plain_bf16``, a bfloat16 op of PyTorch) rounds the float32
+    result. The two agree on every pair of the chain's ranges (planes in [0,
+    1], factors, 1 - f, the gray's weights, the normalisation's scale and
+    bias) and where the operands' exponents lie far apart."""
+    rng = np.random.default_rng(8)
+    ranges = [(0.0, 1.0), (0.2, 1.8), (-0.8, 0.8), (0.1, 0.6), (4.3, 4.5),
+              (-2.2, -1.7), (1e-6, 1e-4)]
+    a = torch.cat([_bf16_values(rng, 20000, *r) for r in ranges])
+    b = torch.cat([_bf16_values(rng, 20000, *r) for r in ranges[::-1]])
+    far = torch.tensor([1.0, 1.0, -1.0, 0.5], dtype=torch.bfloat16)
+    tiny = torch.tensor([2.0 ** -17, -2.0 ** -17, 2.0 ** -9, 2.0 ** -20],
+                        dtype=torch.bfloat16)
+    a, b = torch.cat([a, far]), torch.cat([b, tiny])
+    a64, b64 = a.double().numpy(), b.double().numpy()
+    if op == "mul":
+        got = (a * b).double().numpy()
+        exact = a64 * b64
+    else:
+        got = (a + b).double().numpy()
+        exact = a64 + b64
+    nonzero = exact != 0
+    want = np.where(nonzero, _round_bf16_exact(np.where(nonzero, exact, 1.0)),
+                    0.0)
+    assert np.array_equal(got, want)
+
+
+def test_brightness_as_the_product_alone():
+    """The pair route's brightness is clip(bf16(x fb)): the blend with
+    zeros adds bf16(0 * omf) = +-0 to bf16(x fb), which changes no value,
+    for every bfloat16 plane value in [0, 1] and factors in [0, 2]."""
+    bits = torch.arange(0, 0x3F81, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16)[None, :]  # every bf16 in [0, 1]
+    f = torch.linspace(0.0, 2.0, 257).to(torch.bfloat16)[:, None]
+    omf = (1.0 - f).to(torch.bfloat16)
+    blend = (x * f + torch.zeros_like(x) * omf).clamp(0.0, 1.0)
+    alone = (x * f).clamp(0.0, 1.0)
+    assert torch.equal(blend.view(torch.int16), alone.view(torch.int16))
+
+
+def _pair_route(clips, orders, factors, blur, normalize=True):
+    """The bfloat16 route as ``aug_bf16_band_kernel`` stages it, in plain
+    torch: the chain's values staged before contrast (the frame mean's
+    input) and before the blur, the blur's W pass (float32), and the
+    output, each op a bfloat16 op of PyTorch (the pair ops' rounding) but
+    brightness the product alone. Returns (out, staged, w_pass)."""
+    from dualvar_tpu_torch.aug import functional as F
+
+    bf = torch.bfloat16
+    x = (clips.permute(0, 2, 3, 4, 1).float() * (1.0 / 255.0)).to(bf)
+    H, W = x.shape[-3], x.shape[-2]
+    gw = [torch.tensor(v, dtype=bf) for v in F._GRAY_W]
+    staged, w_pass = [], []
+
+    def gray(s):
+        return s[..., 0:1] * gw[0] + s[..., 1:2] * gw[1] + s[..., 2:3] * gw[2]
+
+    def blend(s, other, f):
+        return (s * f + other * (1.0 - f)).clamp(0.0, 1.0)
+
+    out = torch.empty_like(x)
+    for n in range(x.shape[0]):
+        s = x[n:n + 1]
+        fb = factors[n, :3].to(bf)
+        order = orders[n].tolist()
+        for op in order:
+            if op == 1:
+                staged.append(s)
+                g = gray(s)
+                m = (g.float().sum(dim=(-3, -2), keepdim=True)
+                     * (1.0 / (H * W))).to(bf)
+                s = blend(s, m, fb[1])
+            elif op == 0:
+                s = (s * fb[0]).clamp(0.0, 1.0)
+            elif op == 2:
+                s = blend(s, gray(s), fb[2])
+            else:
+                s = F.adjust_hue(s.float(), factors[n, 3]).to(bf)
+        staged.append(s)
+        if blur[n, 1] > 0:
+            # the blur's two passes in float32, the W pass kept
+            w_pass.append(_w_pass(s.float(), blur[n, 0]))
+            s = F.gaussian_blur(s.float(), blur[n, 0], taps=13).to(bf)
+        out[n:n + 1] = s
+    if normalize:
+        out = (out * torch.tensor([1.0 / v for v in F.IMAGENET_STD], dtype=bf)
+               + torch.tensor([-m / v for m, v in zip(F.IMAGENET_MEAN,
+                                                      F.IMAGENET_STD)],
+                              dtype=bf))
+    return out.permute(0, 4, 1, 2, 3).float(), staged, w_pass
+
+
+def _w_pass(x, sigma):
+    """``gaussian_blur``'s W pass alone (13 taps, edge replication)."""
+    r = 6
+    k = torch.exp(-0.5 * (torch.arange(-r, r + 1, dtype=torch.float32)
+                          / sigma.clamp_min(1e-6)) ** 2)
+    k = k / k.sum()
+    n = x.shape[-2]
+    pos = torch.arange(n)
+    acc = torch.zeros_like(x)
+    for j in range(13):
+        acc = acc + k[j] * x.index_select(-2, (pos - r + j).clamp(0, n - 1))
+    return acc
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_pair_route_is_the_plain_bf16_route_and_stages_bf16_numbers(
+        normalize):
+    """What licenses the kernel's bfloat16 staging: every value it stages in
+    shared memory (the planes before contrast, whose gray makes the frame
+    mean, and before the blur) is a bfloat16 number, and the route built
+    from them is ``aug_fused_plain_bf16`` bit for bit (every op order, blur
+    on and off). The blur's W pass is not: most of its float32 values (83 %
+    here; all of a clip whose sigma of 0.1 leaves one tap) are not bfloat16
+    numbers, so they stay in a float32 plane."""
+    arrays = tuple(map(torch.from_numpy, _kernel_inputs(24, 2)))
+    got, staged, w_pass = _pair_route(*arrays, normalize=normalize)
+    want = aug_fused_plain_bf16(*arrays, normalize=normalize)
+    assert torch.equal(got, want)
+    assert len(staged) > 24 and all(s.dtype == torch.bfloat16
+                                    for s in staged)
+    assert w_pass and all(w.dtype == torch.float32 for w in w_pass)
+    values = torch.cat([w.flatten() for w in w_pass]).numpy()
+    bf_share = float((values.astype(ml_dtypes.bfloat16).astype(np.float32)
+                      == values).mean())
+    assert bf_share < 0.25, bf_share
+
+
+def _hue_terms_all(r, g, b):
+    """The hue's sector sum as the plain version (and the kernel's float32
+    route) forms it: all three quotients, two of the terms masked to 0."""
+    maxc = np.maximum(np.maximum(r, g), b)
+    minc = np.minimum(np.minimum(r, g), b)
+    cr = maxc - minc
+    crd = np.where(maxc == minc, np.float32(1), cr)
+    rc, gc, bc = ((maxc - c) / crd for c in (r, g, b))
+    zero = np.float32(0)
+    hr = np.where(maxc == r, bc - gc, zero)
+    hg = np.where((maxc == g) & (maxc != r), (np.float32(2) + rc) - bc, zero)
+    hb = np.where((maxc != g) & (maxc != r), (np.float32(4) + gc) - rc, zero)
+    return (hr + hg) + hb
+
+
+def _hue_terms_chosen(r, g, b):
+    """``csrc/aug_fused.cu:hue_rn``: the two numerators the maximum's channel
+    needs chosen first, two divisions."""
+    maxc = np.maximum(np.maximum(r, g), b)
+    minc = np.minimum(np.minimum(r, g), b)
+    crd = np.where(maxc == minc, np.float32(1), maxc - minc)
+    is_r = maxc == r
+    is_g = ~is_r & (maxc == g)
+    na = np.where(is_r, b, np.where(is_g, r, g))
+    nb = np.where(is_r, g, np.where(is_g, b, r))
+    base = np.where(is_r, np.float32(0),
+                    np.where(is_g, np.float32(2), np.float32(4)))
+    return (base + (maxc - na) / crd) - (maxc - nb) / crd
+
+
+def test_hue_divides_only_the_two_quotients_it_keeps():
+    """The bfloat16 route's hue divides only the two numerators the sector
+    uses; float32 throughout (numpy rounds each op to nearest), the sector
+    sum is the three-quotient one bit for bit on every kind of bfloat16
+    triple: random, ties between channels, grays, zeros."""
+    rng = np.random.default_rng(12)
+    v = torch.from_numpy(rng.uniform(0, 1, (3, 200000)).astype(
+        np.float32)).to(torch.bfloat16).float().numpy()
+    v[1, :1000] = v[0, :1000]          # r == g
+    v[2, 1000:2000] = v[0, 1000:2000]  # r == b
+    v[2, 2000:3000] = v[1, 2000:3000]  # g == b
+    v[:, 3000:4000] = v[0, 3000:4000]  # gray
+    v[:, 4000:4100] = 0.0
+    r, g, b = v
+    old = _hue_terms_all(r, g, b)
+    new = _hue_terms_chosen(r, g, b)
+    assert old.dtype == new.dtype == np.float32
+    assert np.array_equal(old.view(np.int32), new.view(np.int32))
