@@ -89,15 +89,12 @@ Phases, each fatal on failure (non-zero exit):
      (torchrun's variables, ``init_distributed``) for path R under the
      variable (``channel_sums`` 24 a step, running statistics bitwise as
      without a group) and one MoCo epoch in mode clip-sr-dtw (pointer B a
-     step, soft-DTW twice a step); the step time of ``paper_table1_k400`` at
-     B=8 (five windows) and 32 (three) without and with the group, with
-     the collectives a step by kind; one MoCo epoch with
+     step, soft-DTW twice a step); one MoCo epoch with
      ``--moco_shuffle_bn 2`` in a group of one (the distributed BN-shuffle
-     route) bitwise as the same epoch without a group, and its collectives
-     a step;
+     route) bitwise as the same epoch without a group;
    - path V, the backbone registry's variants: ``paper_table1_k400 --net
      r21d_pad128 / r21d_tiled / s3d_packed / s3dg_packed``, two steps each
-     and the step time at B=8; r21d_pad128 also two steps under
+     at B=8; r21d_pad128 also two steps under
      ``DUALVAR_BN_STATS=pallas``, and after both runs every pad block (the
      weights', the batch-norm biases' and running means', the momentum
      buffers') bitwise zero; the main path's r21d state embedded into
@@ -132,13 +129,13 @@ Phases, each fatal on failure (non-zero exit):
      adam`` and 2 classifier steps (``paper_table1_ucf_ft``) with ``--optim
      adam --remat`` (Adam state in the checkpoint); one main-path step at
      B=32 under ``DUALVAR_BN_STATS=pallas`` with and without ``--remat``
-     (running statistics and losses bitwise, ``channel_sums`` 96 each), and
-     the B=32 step time and peak memory with and without it;
+     (running statistics and losses bitwise, ``channel_sums`` 96 each);
    - what the main path's run writes besides its checkpoint: the profiler
      trace of ``--profile_steps 2`` (it must name the ``aug_fused``
      kernel, once a traced step) and the metrics writer's
      ``metrics.jsonl``; ``get_features`` of SimCLR TimeSeriesV4 and of
-     MoCo on the card against the CPU;
+     MoCo, float32 on the card and on the CPU, each against float64 on the
+     CPU;
    - learning: ``dualvar_tpu_torch/tools/learning_check.py``'s four checks
      (SimCLR naked and TimeSeriesV4 300 steps at B=16 on the synthetic
      videos, the classifier 360 steps, SimCLR naked 160 steps from a JPEG
@@ -166,13 +163,6 @@ Phases, each fatal on failure (non-zero exit):
      and ``mfu_pct`` on every train record, ``aug_fused`` once a train
      step (none in eval) and no other kernel; every record with its
      launches;
-   then step times at B=8 and B=32 (MoCo in ``clip-sr-tc`` and
-   ``clip-sr-dtw``, at n_series 2 and 16: the difference is what soft-DTW
-   and its cost tensor take), of path R at B=8, 32 and 128 with the
-   variable on and off, of the classifier's finetune step at B=4 (the
-   median of five 20-step windows, with each window's time) and 32, of
-   path G at B=8 (five windows, with ATen's batch norm and under
-   ``DUALVAR_BN_STATS=pallas``) and 32, and of each backbone step at B=8;
 5. on-card float32 checks: one train-mode forward with TF32 off against the
    same forward on the CPU from the same weights and block, for the SimCLR
    model, for MoCo in mode ``clip-sr-dtw`` (where the CPU side runs the
@@ -180,22 +170,30 @@ Phases, each fatal on failure (non-zero exit):
    for path R and path G with the variable on (the CPU side takes the plain
    sums; the card's forward must launch ``channel_sums`` once a batch norm
    a backbone pass), for the finetuned classifier, and for path G and each
-   backbone step with the backbone's features compared too (card against
-   CPU, and the CPU's float32 against its float64, at a fixed tolerance a
-   family); and ``channel_sums`` on every batch norm's own maps of one
+   backbone step with the backbone's features compared too: the card's
+   float32 and the CPU's float32 each against a float64 pass on the CPU, at
+   a fixed tolerance a family (``f32_gate``; card against CPU printed);
+   and ``channel_sums`` on every batch norm's own maps of one
    path-G step (308 calls), against float64 sums, timed together in L2 and
    out of it with a breakdown by call size; then one ``channel_sums`` call
    in a ``torch.profiler`` trace.
 
-``python3 chip_smoke.py --bench-only`` builds the kernels and runs path B
-alone (no contract line at the end). ``python3 chip_smoke.py --aug-study``
-builds them and runs ``aug_fused``'s studies alone (``run_aug_study``: the
-float32 route against its reference build, the SASS by instruction class,
-the bfloat16 route's time by blur and hue), no contract line either.
+Each phase prints ``phase: <name>: <s> s`` as it ends.
 
-The last lines of standard output are the script's wall time, one JSON
-object describing every kernel (``{"kernels": [...]}``), the card's name and
-power limit, and
+``python3 chip_smoke.py --bench-only`` builds the kernels and runs path B
+alone (no contract line at the end). ``python3 chip_smoke.py --study``
+builds them and runs the studies alone (``run_study``), no contract line
+either: ``aug_fused``'s (the float32 route against its reference build,
+the SASS by instruction class, the bfloat16 route's time by blur and hue),
+where the float32 aug route's and the bf16 conv's errors come from, the
+float32 error's growth through the batch norms of S3D-G and R2D3D-50, and
+every train step's time (``study_step_times``: ``time_train_steps``, by
+``tools/timing.py``'s rule, warm-up steps, then chains of steps each closed
+by a synchronize, the best chain's ms a step), which gates nothing.
+
+The last lines of standard output are the script's wall time, the
+``{"phase_seconds": ...}`` JSON line, one JSON object describing every
+kernel (``{"kernels": [...]}``), the card's name and power limit, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device the script fails; it never carries on on the CPU. It
 imports nothing of JAX. Logs and checkpoints of the run go under ``build/``
@@ -206,6 +204,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -342,6 +341,54 @@ BF16C_MAX_ULPS = 16
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+class PhaseClock:
+    """Wall seconds of each phase of a run: ``with clock("name"):`` prints
+    ``phase: name: <s> s`` as the phase ends (a failed one too) and keeps
+    the seconds, in the order the phases ran, for ``line``."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        tic = time.perf_counter()
+        try:
+            yield
+        finally:
+            took = time.perf_counter() - tic
+            self.seconds[name] = self.seconds.get(name, 0.0) + took
+            print(f"phase: {name}: {took:.1f} s", flush=True)
+
+    def line(self, total: float) -> str:
+        """The ``phase_seconds`` JSON line: each phase's seconds, their sum
+        and the run's ``total`` (the rest is the set-up between phases)."""
+        return json.dumps({"phase_seconds": self.seconds,
+                           "sum_s": sum(self.seconds.values()),
+                           "total_s": total})
+
+
+def f32_errors(card: list, cpu: list, f64: list) -> dict:
+    """The largest absolute differences between the card's float32
+    outputs, the CPU's float32 outputs and the CPU's float64 outputs of the
+    same inputs (lists of tensors, pairwise), and the largest |float64|."""
+    errs = {"card_vs_cpu": 0.0, "cpu_vs_f64": 0.0, "card_vs_f64": 0.0}
+    for a, b, want in zip(card, cpu, f64, strict=True):
+        a, b, want = (t.detach().double().cpu() for t in (a, b, want))
+        for key, x, y in (("card_vs_cpu", a, b), ("cpu_vs_f64", b, want),
+                          ("card_vs_f64", a, want)):
+            errs[key] = max(errs[key], float((x - y).abs().max()))
+    errs["max_abs_out"] = max(float(w.abs().max()) for w in f64)
+    return errs
+
+
+def f32_gate(errs: dict, atol: float) -> bool:
+    """The float32 feature gate: each float32 answer, the card's and the
+    CPU's, within ``atol`` of the float64 one. ``card_vs_cpu`` holds two
+    rounded answers against each other, each up to ``atol`` from the exact
+    one, so it is printed and not gated. A NaN fails."""
+    return errs["card_vs_f64"] <= atol and errs["cpu_vs_f64"] <= atol
 
 
 def device_line() -> str:
@@ -632,7 +679,7 @@ def aug_f32_fingerprint(torch, device) -> dict:
 # ``aug_f32_fingerprint`` of the float32 route as the redesign of the
 # bfloat16 route found it, built by this nvcc (NVIDIA H100 80GB HBM3). A
 # change that must leave the float32 route as it is shows it with
-# ``--aug-study``; a change that means to alter the route refreshes these
+# ``--study``; a change that means to alter the route refreshes these
 # hashes. Another nvcc may compile the same source to other instructions:
 # the comparison is then printed as not made.
 AUG_F32_REFERENCE = {
@@ -670,7 +717,7 @@ def check_aug_f32_unchanged(torch, device) -> dict:
 
 
 def run_aug_study(torch, device) -> dict:
-    """``--aug-study``: the float32 route against ``AUG_F32_REFERENCE``,
+    """The float32 route against ``AUG_F32_REFERENCE``,
     the SASS of every ``aug_fused`` instantiation by instruction class, and
     where the bfloat16 route's time goes beside the float32 route's. None
     of them is a check of the main run."""
@@ -2377,36 +2424,21 @@ def run_smoke_presets(torch, log_root: str) -> dict:
     return counts
 
 
-def time_path_r(torch, log_root: str) -> None:
-    """Path R's step at B=8 and 32, and at 128 (else 64) if it fits, with
-    ATen's batch norm and with the channel-sum kernel."""
-    import gc
-
-    for batch_size in (8, 32):
-        for on in (False, True):
-            with bn_stats_env(on):
-                time_train_steps(torch, path_r_cfg(batch_size, log_root))
-    for batch_size in (128, 64):
-        try:
-            for on in (False, True):
-                with bn_stats_env(on):
-                    time_train_steps(torch, path_r_cfg(batch_size, log_root),
-                                     n=5)
-            return
-        except torch.cuda.OutOfMemoryError as exc:
-            print(f"step time: path R at B={batch_size} does not fit: "
-                  f"{str(exc).splitlines()[0]}", flush=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-
-
-def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
+def time_train_steps(torch, cfg, n: int = 5, chains: int = 2) -> dict:
     """Step time of the same step train() runs for ``cfg`` (pretrain or the
     classifier), on one device-resident batch (loading excluded), bf16
-    autocast as the preset asks: ``windows`` host-clock windows of ``n``
-    steps after 3 warm-up steps, the median window's ms per step and every
-    window's, with peak device memory. ``samples_per_s`` is B a second,
-    ``clips_per_s`` B x views a second (the benches' and soaks' clips)."""
+    autocast as the preset asks, by the port's one timing rule
+    (``tools/timing.py``, the benches' and the JAX scripts'): ``WARMUP``
+    steps, then ``chains`` chains of ``n`` steps each closed by a
+    synchronize (``time_chains``); the best chain's ms per step and every
+    chain's, with peak device memory. ``samples_per_s`` is B a second,
+    ``clips_per_s`` B x views a second (the benches' and soaks' clips).
+    Fails on a non-finite loss or a key-encoder parameter that takes a
+    gradient."""
+    from dualvar_tpu_torch.core import dist
+    from dualvar_tpu_torch.tools.timing import WARMUP, time_chains
+
+    started = time.perf_counter()
     classifier = is_classifier(cfg)
     batch_size = cfg.optim.batch_size
     setup = trainer_of(cfg).setup_training(cfg, "cuda")
@@ -2417,21 +2449,16 @@ def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
         batch = next(loader.epoch(0))
     inputs = [torch.from_numpy(batch[key]).to("cuda")
               for key in (("frames", "label") if classifier else ("frames",))]
-    for _ in range(3):
+    for _ in range(WARMUP):
         setup.train_step(*inputs, setup.generator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    from dualvar_tpu_torch.core import dist
-
     dist.collectives.clear()
-    window_ms = []
-    for _ in range(windows):
-        tic = time.perf_counter()
-        for _ in range(n):
-            metrics = setup.train_step(*inputs, setup.generator)
-        torch.cuda.synchronize()
-        window_ms.append((time.perf_counter() - tic) / n * 1e3)
-    ms = statistics.median(window_ms)
+    seconds, metrics = time_chains(
+        lambda: setup.train_step(*inputs, setup.generator), n, chains,
+        torch.device("cuda"))
+    chains_ms = [s / n * 1e3 for s in seconds]
+    ms = min(chains_ms)
     loss = "loss" if classifier else "total_loss"
     if not math.isfinite(float(metrics[loss])):
         fail(f"timed steps of {describe(cfg)} at B={batch_size}: {loss} not "
@@ -2451,20 +2478,39 @@ def time_train_steps(torch, cfg, n: int = 10, windows: int = 1) -> None:
                 "n_series": cfg.model.n_series}
     record = {
         **what, "remat": cfg.model.remat, "optim": cfg.optim.optim,
-        "batch_size": batch_size, "steps": n, "windows": windows,
+        "batch_size": batch_size, "steps": n, "chains": chains,
         "dtype": cfg.model.dtype, "world_size": dist.world_size(),
         "backend": torch.distributed.get_backend() if dist.active() else None,
-        "collectives_per_step": {k: v / (n * windows)
+        "collectives_per_step": {k: v / (n * chains)
                                  for k, v in dist.collectives.items()},
         "ms_per_step": ms, "samples_per_s": batch_size / ms * 1e3,
         "clips_per_s": batch_size * n_views / ms * 1e3,
-        "window_ms_per_step": window_ms,
+        "chains_ms_per_step": chains_ms,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "wall_s": time.perf_counter() - started,
     }
     print("step time: " + json.dumps(record), flush=True)
     del setup
     torch.cuda.empty_cache()
     return record
+
+
+def f32_block(torch, cfg):
+    """The float32 checks' input for ``cfg`` at B=2: the first batch of
+    its synthetic loader (seed 1), augmented on the card from generator
+    seed 3, and the fixed segment permutation."""
+    from dualvar_tpu_torch.aug.pipeline import AugConfig, pretrain_batch
+    from dualvar_tpu_torch.data.loader import HostLoader
+    from dualvar_tpu_torch.train.pretrain import build_dataset
+
+    n_views = 2 if cfg.model.model.endswith("naked") else 3
+    with HostLoader(build_dataset(cfg, n_views), 2, seed=1,
+                    num_workers=2) as loader:
+        frames = torch.from_numpy(next(loader.epoch(0))["frames"])
+    generator = torch.Generator().manual_seed(3)
+    aug_cfg = AugConfig(jitter_order="sample")
+    block = pretrain_batch(generator, frames.to("cuda"), aug_cfg)
+    return block, torch.tensor([[1, 0], [0, 1]])
 
 
 def check_f32_forward(torch, label: str, cfg, state: dict,
@@ -2485,24 +2531,14 @@ def check_f32_forward(torch, label: str, cfg, state: dict,
     so the check also shows that the flags took effect.
 
     With ``feature_atol`` the backbone's outputs inside the forward are
-    compared too: the card's against the CPU's, and the CPU's float32
-    against a float64 pass of the CPU's backbone on the same inputs, each
-    within ``feature_atol``."""
-    from dualvar_tpu_torch.aug.pipeline import AugConfig, pretrain_batch
-    from dualvar_tpu_torch.data.loader import HostLoader
+    compared too, against a float64 pass of the CPU's backbone on the same
+    inputs: the card's float32 and the CPU's float32 each within
+    ``feature_atol`` of it (``f32_gate``); card against CPU is printed."""
     from dualvar_tpu_torch.ops.bn_stats import channel_sums
-    from dualvar_tpu_torch.train.pretrain import build_dataset
     from dualvar_tpu_torch.train.tasks import make_task
 
     tf32 = tf32_off(torch)
-    n_views = 2 if cfg.model.model.endswith("naked") else 3
-    with HostLoader(build_dataset(cfg, n_views), 2, seed=1,
-                    num_workers=2) as loader:
-        frames = torch.from_numpy(next(loader.epoch(0))["frames"])
-    generator = torch.Generator().manual_seed(3)
-    aug_cfg = AugConfig(jitter_order="sample")
-    block = pretrain_batch(generator, frames.to("cuda"), aug_cfg)
-    perm = torch.tensor([[1, 0], [0, 1]])
+    block, perm = f32_block(torch, cfg)
     rets, feats = {}, {}
     for dev in ("cuda", "cpu"):
         task = make_task(cfg.model)
@@ -2551,28 +2587,175 @@ def check_f32_forward(torch, label: str, cfg, state: dict,
         backbone = task.model.backbone.double()
         with torch.no_grad():
             f64 = [backbone(x.double()) for x, _ in feats["cpu"]]
-        errs = {"card_vs_cpu": 0.0, "cpu_vs_f64": 0.0, "card_vs_f64": 0.0}
-        for (_, card), (_, cpu), want in zip(feats["cuda"], feats["cpu"],
-                                             f64):
-            if not torch.isfinite(card).all():
-                fail(f"f32 check, {label}: the card's features are not "
-                     "finite")
-            for key, a, b in (("card_vs_cpu", card, cpu),
-                              ("cpu_vs_f64", cpu, want),
-                              ("card_vs_f64", card, want)):
-                errs[key] = max(errs[key], float((a - b).abs().max()))
-        errs["max_abs_out"] = max(float(w.abs().max()) for w in f64)
+        card = [out for _, out in feats["cuda"]]
+        if len(card) != len(f64) or not f64 or not all(
+                torch.isfinite(c).all() for c in card):
+            fail(f"f32 check, {label}: the card's features are not finite "
+                 f"or not {len(f64)} passes")
+        errs = f32_errors(card, [out for _, out in feats["cpu"]], f64)
         print(f"f32 check, {label}: backbone features of "
               f"{len(f64)} passes, shapes "
               f"{[tuple(w.shape) for w in f64]}: " + json.dumps(errs)
-              + f" (atol {feature_atol:.1e} on card_vs_cpu and cpu_vs_f64)",
+              + f" (atol {feature_atol:.1e} on card_vs_f64 and cpu_vs_f64)",
               flush=True)
-        if not (len(feats["cuda"]) == len(f64) > 0
-                and errs["card_vs_cpu"] <= feature_atol
-                and errs["cpu_vs_f64"] <= feature_atol):
-            fail(f"f32 check, {label}: backbone features off by more than "
-                 f"{feature_atol}")
+        if not f32_gate(errs, feature_atol):
+            fail(f"f32 check, {label}: backbone features off float64 by "
+                 f"more than {feature_atol}")
     tf32_restore(torch, tf32)
+
+
+def study_f32_growth(torch, label: str, cfg) -> dict:
+    """How the float32 backbone's error against float64 grows from batch
+    norm to batch norm (ROADMAP C.6), on the CPU and on the card, TF32 off:
+    ``cfg``'s task at B=2 in train mode, weights drawn from seed 0, its
+    first backbone pass on ``f32_block``'s input (a CPU float32 forward of
+    the task gives that pass's input). For each batch norm in call order,
+    the largest error of its input and of its output against a float64
+    pass of the same input, each relative to the float64 map's largest
+    magnitude, and their ratio (the gain); the five batch norms of largest
+    gain with the smallest standard deviation among their input's channels
+    and that input's largest magnitude; the features' absolute error, the
+    quantity ``check_f32_forward`` gates. Printed only."""
+    from dualvar_tpu_torch.models.layers import BatchNorm
+    from dualvar_tpu_torch.train.tasks import make_task
+
+    tf32 = tf32_off(torch)
+    block, perm = f32_block(torch, cfg)
+    torch.manual_seed(0)
+    task = make_task(cfg.model)
+    task.model.train()
+    backbone = task.model.backbone
+    seen = []
+    hook = backbone.register_forward_hook(
+        lambda mod, args, out: seen.append(args[0].detach().clone()))
+    with torch.no_grad():
+        task.forward(block.cpu(), perm=perm)
+    hook.remove()
+    x = seen[0]
+    norms = [(name, mod) for name, mod in backbone.named_modules()
+             if isinstance(mod, BatchNorm)]
+
+    def run(dtype, device, record):
+        calls = iter(range(len(norms)))
+        hooks = [mod.register_forward_hook(
+            lambda mod, args, out, name=name: record(
+                next(calls), name, args[0].detach().double().cpu(),
+                out.detach().double().cpu()))
+            for name, mod in norms]
+        backbone.to(device=device, dtype=dtype)
+        with torch.no_grad():
+            out = backbone(x.to(device=device, dtype=dtype))
+        for h in hooks:
+            h.remove()
+        return out.double().cpu()
+
+    ref = {}
+
+    def keep(i, name, a, y):
+        ref[i] = (name, a, y)
+
+    want = run(torch.float64, "cpu", keep)
+    out = {"batch_norms": len(ref), "input_shape": list(x.shape)}
+    for device in ("cpu", "cuda"):
+        rows = []
+
+        def compare(i, name, a, y):
+            ra, ry = ref[i][1], ref[i][2]
+            in_rel = float((a - ra).abs().max() / ra.abs().max())
+            out_rel = float((y - ry).abs().max() / ry.abs().max())
+            std = ra.transpose(0, 1).flatten(1).std(dim=1, unbiased=False)
+            rows.append({"bn": name, "in_rel": in_rel, "out_rel": out_rel,
+                         "gain": out_rel / in_rel if in_rel else math.inf,
+                         "in_std_min": float(std.min()),
+                         "in_abs_max": float(ra.abs().max())})
+
+        got = run(torch.float32, device, compare)
+        top = sorted(rows, key=lambda r: -r["gain"])[:5]
+        out[device] = {
+            "features_abs_err": float((got - want).abs().max()),
+            "features_abs_max": float(want.abs().max()),
+            "out_rel_by_bn": [float(f"{r['out_rel']:.3g}") for r in rows],
+            "largest_gains": top}
+        print(f"study: f32 error growth, {label}, {device}: "
+              + json.dumps(out[device]), flush=True)
+    tf32_restore(torch, tf32)
+    del task, backbone, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def study_step_times(torch, log_root: str) -> None:
+    """Every step time, by ``time_train_steps``' rule; none is a check of
+    the main run. ``paper_table1_k400`` at B=8 and 32 without and with a
+    process group of one (path D: the collectives a step), at B=32 with
+    ``--remat`` (path F: peak memory and ms beside B=32 without it), and
+    with each backbone of the backbone steps and of path V at B=8; MoCo
+    with ``--moco_shuffle_bn 2`` in a group of one (its collectives a
+    step); MoCo in ``clip-sr-tc`` at B=8 and in ``clip-sr-dtw`` at B=8 and
+    32, at n_series 2 and (both modes, both batches) 16, where the modes'
+    difference is what soft-DTW and its cost tensor take; path R at B=8
+    and 32 with ATen's batch norm and with the channel-sum kernel, and at
+    128 with the kernel; the classifier's finetune step at B=4 (three
+    chains of 20: a host-bound step of about 20 ms) and 32; path G at B=8
+    with either batch norm and at 32. MoCo ``clip-sr-tc`` at B=32 and path
+    R's ATen step at B=128 are path B's (the main run's)."""
+    k400 = functools.partial(smoke_cfg, "paper_table1_k400")
+    for batch_size in (8, 32):
+        time_train_steps(torch, k400(batch_size, log_root))
+    with process_group(torch):
+        for batch_size in (8, 32):
+            time_train_steps(torch, k400(batch_size, log_root))
+        with bn_stats_env(True):
+            time_train_steps(torch, smoke_cfg(
+                MOCO_PRESET, 8, log_root, moco_shuffle_bn=SHUFFLE_BN_GROUPS))
+    time_train_steps(torch, k400(32, log_root, remat=True))
+    for net in BACKBONE_STEP_NETS + VARIANT_NETS:
+        time_train_steps(torch, k400(8, log_root, net=net))
+    for batch_size, mode in ((8, "clip-sr-tc"), (8, "clip-sr-dtw"),
+                             (32, "clip-sr-dtw")):
+        time_train_steps(torch, smoke_cfg(MOCO_PRESET, batch_size, log_root,
+                                          mode=mode))
+    for batch_size in (8, 32):
+        for mode in ("clip-sr-tc", "clip-sr-dtw"):
+            time_train_steps(torch, smoke_cfg(
+                MOCO_PRESET, batch_size, log_root, mode=mode, n_series=16))
+    for batch_size, routes in ((8, (False, True)), (32, (False, True)),
+                               (128, (True,))):
+        for on in routes:
+            with bn_stats_env(on):
+                time_train_steps(torch, path_r_cfg(batch_size, log_root))
+    time_train_steps(torch, path_c_cfg(log_root, 4), n=20, chains=3)
+    time_train_steps(torch, path_c_cfg(log_root, 32, videos=32))
+    time_train_steps(torch, path_g_cfg(8, log_root))
+    with bn_stats_env(True):
+        time_train_steps(torch, path_g_cfg(8, log_root))
+    time_train_steps(torch, path_g_cfg(32, log_root, videos=32))
+
+
+def run_study(torch, device, log_root: str, phase) -> None:
+    """``--study``: what the main run does not gate on. ``aug_fused``'s
+    studies (``run_aug_study``); where the float32 aug route's and the
+    bf16 conv's errors come from (``diagnose_aug_f32_margin``,
+    ``diagnose_conv_bf16_margin``); the float32 backbone's error growth
+    through the batch norms (``study_f32_growth``) of S3D-G (path G's
+    check, ``DUALVAR_BN_STATS=pallas``) and of R2D3D-50 (the backbone
+    step's check); every train step's time (``study_step_times``)."""
+    with phase("study: aug_fused"):
+        run_aug_study(torch, device)
+    with phase("study: aug_fused float32 margin"):
+        diagnose_aug_f32_margin(torch, device)
+    with phase("study: conv3d_bn_stats bf16 margin"):
+        diagnose_conv_bf16_margin(torch, device)
+    with phase("study: f32 growth, S3D-G"), bn_stats_env(True):
+        study_f32_growth(torch, "S3D-G (path G), B=2",
+                         path_g_cfg(2, log_root))
+    with phase("study: f32 growth, R2D3D-50"):
+        study_f32_growth(torch, "R2D3D-50 (backbone r50), B=2",
+                         smoke_cfg("paper_table1_k400", 2, log_root,
+                                   net="r50"))
+    with phase("study: step times"):
+        study_step_times(torch, log_root)
 
 
 def check_restore_on_card(torch, label: str, cfg) -> dict:
@@ -2821,10 +3004,10 @@ def run_path_m_resume(torch, log_root: str) -> dict:
 
 def run_backbone_steps(torch, log_root: str) -> dict:
     """``paper_table1_k400 --net <x>`` for each of ``BACKBONE_STEP_NETS``:
-    two steps at B=8 (``aug_fused`` 2), the step time at B=8 (three
-    10-step windows) with peak memory, and the backbone's float32 forward
-    on the card against the CPU (``check_f32_forward`` with the family's
-    feature tolerance)."""
+    two steps at B=8 (``aug_fused`` 2) and the backbone's float32 forward
+    on the card and on the CPU, each against float64 (``check_f32_forward``
+    with the family's feature tolerance). Their step times are taken in
+    ``study_step_times``."""
     by_run = {}
     for net in BACKBONE_STEP_NETS:
         cfg = smoke_cfg("paper_table1_k400", 8, log_root, net=net)
@@ -2832,7 +3015,6 @@ def run_backbone_steps(torch, log_root: str) -> dict:
         state, by_run[label] = run_path(
             torch, label, cfg, PATH_S_STEPS,
             expected_launches(aug_fused=PATH_S_STEPS), TSV4_LOSSES)
-        time_train_steps(torch, cfg, windows=3)
         check_f32_forward(
             torch, label, smoke_cfg("paper_table1_k400", 2, log_root, net=net),
             state, feature_atol=FEATURE_F32_ATOL_BY_NET.get(
@@ -3455,9 +3637,9 @@ def run_path_d(torch, log_root: str, r_state: dict) -> dict:
     norms' routes at world size 1, path R under ``DUALVAR_BN_STATS=pallas``
     (``channel_sums`` 24 a step, its running statistics against path R's
     without a group), one MoCo epoch in mode clip-sr-dtw (the pointer moves
-    by B a step; soft-DTW twice a step); the collectives a step and the step
-    time of ``paper_table1_k400`` at B=8 and 32 with the group, beside the
-    same without it."""
+    by B a step; soft-DTW twice a step). The step times with and without
+    the group, with the collectives a step, are taken in
+    ``study_step_times``."""
     from dualvar_tpu_torch.core import dist
 
     by_run = {}
@@ -3501,10 +3683,6 @@ def run_path_d(torch, log_root: str, r_state: dict) -> dict:
           "steps, rank 0's generator state too; its last losses as logged: "
           + json.dumps(d_losses), flush=True)
 
-    for batch_size in (8, 32):
-        time_train_steps(torch, smoke_cfg("paper_table1_k400", batch_size,
-                                          log_root),
-                         windows=5 if batch_size == 8 else 3)
     with process_group(torch):
         r_cfg = path_r_cfg(8, log_root)
         r_cfg = r_cfg.replace(run=dataclasses.replace(
@@ -3540,11 +3718,6 @@ def run_path_d(torch, log_root: str, r_state: dict) -> dict:
             expected_launches(aug_fused=steps, soft_dtw_fwd=2 * steps,
                               soft_dtw_bwd=2 * steps), TSV4_LOSSES)
         check_moco_state(torch, "path D, MoCo epoch", m_cfg, m_state, steps)
-
-        for batch_size in (8, 32):
-            time_train_steps(torch, smoke_cfg("paper_table1_k400",
-                                              batch_size, log_root),
-                             windows=5 if batch_size == 8 else 3)
     by_run["path D, MoCo shuffle BN"] = check_shuffle_bn_at_world_one(
         torch, log_root)
     return by_run
@@ -3557,8 +3730,9 @@ def check_shuffle_bn_at_world_one(torch, log_root: str) -> dict:
     gathered back) for one epoch of MoCo at B=8 under
     ``DUALVAR_BN_STATS=pallas``, against the same epoch without a group:
     every state entry (queues, pointer, both encoders and their running
-    statistics) and every logged metric bitwise; the collectives of a step
-    by kind (``time_train_steps`` in the group)."""
+    statistics) and every logged metric bitwise. Its step time and
+    collectives a step in the group are taken in
+    ``study_step_times``."""
     from dualvar_tpu_torch.core import dist
 
     cfg = smoke_cfg(MOCO_PRESET, 8, log_root,
@@ -3584,10 +3758,9 @@ def check_shuffle_bn_at_world_one(torch, log_root: str) -> dict:
                     2 * 2 + SHUFFLE_BN_GROUPS) * R2P1D_BATCH_NORMS * steps),
                 TSV4_LOSSES)
             runs[label] = (state, dict(LAST_METRICS), launches)
-            if label == "group":
-                if dist.world_size() != 1 or not dist.active():
-                    fail("path D, MoCo shuffle BN: not in a group of one")
-                time_train_steps(torch, cfg, n=5)
+            if label == "group" and (dist.world_size() != 1
+                                     or not dist.active()):
+                fail("path D, MoCo shuffle BN: not in a group of one")
     (g_state, g_metrics, launches), (s_state, s_metrics, _) = (
         runs["group"], runs["one process"])
     differ = [k for k, v in s_state.items() if not torch.equal(g_state[k], v)]
@@ -3645,7 +3818,7 @@ def run_learning(torch, log_root: str) -> dict:
 # the SimCLR soak's length, and the MoCo soak's: at least one wrap of the
 # K=16384 queue is 512 steps at B=32, 153 s at the 298 ms a step measured
 # on an H100, so 3 minutes wrap it once with 18 % to spare
-SOAK_MINUTES = 1.0
+SOAK_MINUTES = 0.5
 MOCO_SOAK_MINUTES = 3.0
 # a queue row's distance from unit norm, float32 keys
 QUEUE_NORM_TOL = 1e-3
@@ -3978,7 +4151,8 @@ def check_packed_s3dg(torch, g_state: dict) -> None:
 def run_path_v(torch, log_root: str, main_state: dict,
                g_state: dict) -> dict:
     """``paper_table1_k400 --net <variant>``, two steps each at B=8
-    (``aug_fused`` once a step), then the step time (three windows);
+    (``aug_fused`` once a step; the step times are taken in
+    ``study_step_times``);
     r21d_pad128 also two steps under ``DUALVAR_BN_STATS=pallas``
     (``channel_sums`` 96 a step) and its pad blocks after both runs; the
     embedded r21d_pad128 step and the packed S3D-G forward."""
@@ -4001,7 +4175,6 @@ def run_path_v(torch, log_root: str, main_state: dict,
                         channel_sums=R21D_SUMS_PER_STEP * PATH_S_STEPS),
                     TSV4_LOSSES)
             check_pad_blocks_saved(torch, label + ", pallas", pallas)
-        time_train_steps(torch, cfg, windows=3)
         torch.cuda.empty_cache()
     check_embedded_pad128_step(torch, log_root, main_state)
     check_packed_s3dg(torch, g_state)
@@ -4142,11 +4315,13 @@ def run_path_e(torch, log_root: str, clf_cfg) -> dict:
 def check_features_on_card(torch, log_root: str, tsv4_state: dict,
                            moco_state: dict) -> None:
     """``get_features`` of the main path's TSV4 and path M's MoCo (query
-    encoder) on R(2+1)D-18, float32 with TF32 off, card against CPU on the
-    same weights and clips: four finite (B, T', H', W') maps each, the
-    shapes the CPU gives, within ``FEATURE_F32_ATOL``. ``visualize`` runs in
-    the CPU tests; it writes PNGs through pillow, which this machine may
-    not have."""
+    encoder) on R(2+1)D-18, float32 with TF32 off, on the card and on the
+    CPU, and float64 on the CPU, from the same weights and clips: four
+    finite (B, T', H', W') maps each, the shapes the CPU gives, the card's
+    and the CPU's float32 maps each within ``FEATURE_F32_ATOL`` of the
+    float64 ones (``f32_gate``; card against CPU printed). ``visualize``
+    runs in the CPU tests; it writes PNGs through pillow, which this
+    machine may not have."""
     from dualvar_tpu_torch.train.tasks import make_task
 
     try:
@@ -4168,17 +4343,23 @@ def check_features_on_card(torch, log_root: str, tsv4_state: dict,
         task = make_task(cfg.model)
         task.model.load_state_dict(state)
         want = task.get_features(x)
-        task.model.to("cuda")
+        task.model.double()
+        with torch.no_grad():
+            f64 = task.get_features(x.double())
+        task.model.float().to("cuda")
         got = task.get_features(x.to("cuda"))
-        err = max(float((g.cpu() - w).abs().max())
-                  for g, w in zip(got, want))
         shapes = [tuple(g.shape) for g in got]
-        print(f"get_features {label}: card vs CPU, TF32 off: shapes {shapes}"
-              f", max err {err:.3e} (atol {FEATURE_F32_ATOL})", flush=True)
         if len(got) != 4 or shapes != [tuple(w.shape) for w in want] \
-                or not all(torch.isfinite(g).all() for g in got) \
-                or not err <= FEATURE_F32_ATOL:
-            fail(f"get_features {label}: the card's maps are not the CPU's")
+                or not all(torch.isfinite(g).all() for g in got):
+            fail(f"get_features {label}: the card's maps are not finite or "
+                 f"not of the CPU's shapes ({shapes})")
+        errs = f32_errors(got, want, f64)
+        print(f"get_features {label}: TF32 off, shapes {shapes}: "
+              + json.dumps(errs) + f" (atol {FEATURE_F32_ATOL:.1e} on "
+              "card_vs_f64 and cpu_vs_f64)", flush=True)
+        if not f32_gate(errs, FEATURE_F32_ATOL):
+            fail(f"get_features {label}: the float32 maps are off float64 by "
+                 f"more than {FEATURE_F32_ATOL}")
     tf32_restore(torch, old)
 
 
@@ -4625,9 +4806,10 @@ def run_path_f(torch, log_root: str) -> dict:
     """Path F: ``paper_table1_k400`` at B=8 on the unfused path three ways
     (``aug_fused`` 0 launches), the unfused batch card against CPU and
     timed against the kernel, two ``--optim adam`` steps, two classifier
-    steps with ``--optim adam --remat``, the main path at B=32 with and
-    without ``--remat`` (peak memory, step ms) and one step with and
-    without it bitwise (``check_remat_running_stats``)."""
+    steps with ``--optim adam --remat``, and one main-path step at B=32
+    with and without ``--remat`` bitwise (``check_remat_running_stats``).
+    The B=32 step time and peak memory with and without it are taken in
+    ``study_step_times``."""
     from dualvar_tpu_torch.core.checkpoint import checkpoint_file
 
     by_run = {}
@@ -4664,12 +4846,6 @@ def run_path_f(torch, log_root: str) -> dict:
         if not states or not all("exp_avg_sq" in s for s in states):
             fail(f"{label}: the checkpoint holds no Adam state")
     summary["remat"] = check_remat_running_stats(torch, log_root)
-    for remat in (False, True):
-        record = time_train_steps(torch, smoke_cfg(
-            "paper_table1_k400", 32, log_root, remat=remat))
-        summary[f"B=32 remat={remat}"] = {
-            k: record[k] for k in ("ms_per_step",
-                                   "max_memory_allocated_bytes")}
     print("path F: " + json.dumps(summary), flush=True)
     return by_run, summary
 
@@ -4679,9 +4855,9 @@ def main(argv: list[str] | None = None) -> int:
     # --bench-only: the kernels' build, then path B alone (no contract line)
     args = sys.argv[1:] if argv is None else argv
     bench_only = "--bench-only" in args
-    # --aug-study: the kernels' build, then aug_fused's studies (no contract
-    # line)
-    aug_study = "--aug-study" in args
+    # --study: the kernels' build, then the studies (``run_study``; no
+    # contract line)
+    study = "--study" in args
     import torch
 
     if not torch.cuda.is_available():
@@ -4699,9 +4875,9 @@ def main(argv: list[str] | None = None) -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    phase = PhaseClock()
     # the batch norm's path is chosen per run below, not by the caller
     os.environ.pop("DUALVAR_BN_STATS", None)
-    tic = time.perf_counter()
     names = ("aug_fused", "soft_dtw", "bn_stats", "conv_fused")
 
     def build(name):
@@ -4721,82 +4897,117 @@ def main(argv: list[str] | None = None) -> int:
         start = time.perf_counter()
         return launch_floor_kernel(torch), time.perf_counter() - start
 
-    # one compiler a source
-    with ThreadPoolExecutor(len(names) + 2) as pool:
-        decoder = pool.submit(build_native)
-        empty = pool.submit(build_floor)
-        took = dict(zip(names, pool.map(build, names)))
-        native_built, took["native decoder (g++)"] = decoder.result()
-        floor, took["empty kernel"] = empty.result()
-    print(f"build: {', '.join(names)}, the empty kernel and the native "
-          f"decoder in "
-          f"{time.perf_counter() - tic:.1f} s side by side; each: "
-          + json.dumps(took) + f"; native decoder built: {native_built}",
-          flush=True)
-    for name in names:
-        with open(ptxas_log_path(name)) as fh:
-            print(f"build: ptxas {name}: " + " | ".join(
-                line.strip() for line in fh
-                if "registers" in line or "spill" in line), flush=True)
+    with phase("build"):
+        tic = time.perf_counter()
+        # one compiler a source
+        with ThreadPoolExecutor(len(names) + 2) as pool:
+            decoder = pool.submit(build_native)
+            empty = pool.submit(build_floor)
+            took = dict(zip(names, pool.map(build, names)))
+            native_built, took["native decoder (g++)"] = decoder.result()
+            floor, took["empty kernel"] = empty.result()
+        print(f"build: {', '.join(names)}, the empty kernel and the native "
+              f"decoder in "
+              f"{time.perf_counter() - tic:.1f} s side by side; each: "
+              + json.dumps(took) + f"; native decoder built: {native_built}",
+              flush=True)
+        for name in names:
+            with open(ptxas_log_path(name)) as fh:
+                print(f"build: ptxas {name}: " + " | ".join(
+                    line.strip() for line in fh
+                    if "registers" in line or "spill" in line), flush=True)
 
-    for name in PTXAS_CLEAN:
-        check_ptxas_clean(name)
+        for name in PTXAS_CLEAN:
+            check_ptxas_clean(name)
     if bench_only:
-        run_bench_phase(torch)
+        with phase("path B"):
+            run_bench_phase(torch)
         print(f"chip_smoke --bench-only: {time.perf_counter() - start:.1f} s "
               "from start to end, the kernels' build included", flush=True)
+        print(phase.line(time.perf_counter() - start))
         print(smi)
         return 0
 
     device = torch.device("cuda")
-    if aug_study:
-        run_aug_study(torch, device)
-        print(f"chip_smoke --aug-study: {time.perf_counter() - start:.1f} s "
-              "from start to end, the kernels' build included", flush=True)
-        print(smi)
-        return 0
-    kernels = [check_aug_kernel(torch, device),
-               check_aug_bf16_compute(torch, device),
-               *check_soft_dtw_kernels(torch, device),
-               check_channel_sums_kernel(torch, device, floor),
-               *check_conv_kernel(torch, device)]
-
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
     log_root = tempfile.mkdtemp(prefix="chip_smoke_",
                                 dir=os.path.join(here, "build"))
     try:
-        state, by_path = run_main_path(torch, log_root)
+        if study:
+            run_study(torch, device, log_root, phase)
+            print(f"chip_smoke --study: {time.perf_counter() - start:.1f} s "
+                  "from start to end, the kernels' build included",
+                  flush=True)
+            print(phase.line(time.perf_counter() - start))
+            print(smi)
+            return 0
+        kernels = []
+        with phase("kernel aug_fused"):
+            kernels.append(check_aug_kernel(torch, device))
+        with phase("kernel aug_fused_bf16"):
+            kernels.append(check_aug_bf16_compute(torch, device))
+        with phase("kernel soft_dtw"):
+            kernels += check_soft_dtw_kernels(torch, device)
+        with phase("kernel channel_sums"):
+            kernels.append(check_channel_sums_kernel(torch, device, floor))
+        with phase("kernel conv3d_bn_stats"):
+            kernels += check_conv_kernel(torch, device)
+
+        with phase("main path"):
+            state, by_path = run_main_path(torch, log_root)
         by_path = {"paper_table1_k400": by_path}
-        by_path["main path, bf16 compute"] = run_bf16_compute_step(
-            torch, log_root)
-        moco_state, by_path["path M"] = run_path_m(torch, log_root)
-        _, by_path["path M16"] = run_path_m(torch, log_root, "path M16",
-                                            n_series=16)
-        by_path["path S"] = run_path_s(torch, log_root)
-        r_state, by_path["path R"], by_path["path R, ATen batch norm"] = \
-            run_path_r(torch, log_root)
-        by_path.update(run_smoke_presets(torch, log_root))
-        # path C grafts from the main path's checkpoint directory
-        main_ckpt = os.path.join(
-            set_path(smoke_cfg("paper_table1_k400", 8, log_root)), "model")
-        clf_state, path_c = run_path_c(torch, log_root, main_ckpt)
-        by_path.update(path_c)
-        by_path.update(run_path_p(torch, log_root))
-        g_state, path_g = run_path_g(torch, log_root)
-        by_path.update(path_g)
-        by_path.update(run_path_m_resume(torch, log_root))
-        by_path.update(run_backbone_steps(torch, log_root))
-        by_path.update(run_path_d(torch, log_root, r_state))
-        by_path.update(run_path_v(torch, log_root, state, g_state))
-        by_path["path E"] = run_path_e(torch, log_root, path_c_cfg(log_root))
-        by_path.update(run_path_j(torch, log_root))
-        path_f, path_f_summary = run_path_f(torch, log_root)
-        by_path.update(path_f)
-        check_features_on_card(torch, log_root, state, moco_state)
-        run_learning(torch, log_root)
-        by_path.update(run_soak_paths(torch, log_root))
-        by_path.update(run_bench_phase(torch))
+        with phase("main path, bf16 compute"):
+            by_path["main path, bf16 compute"] = run_bf16_compute_step(
+                torch, log_root)
+        with phase("path M"):
+            moco_state, by_path["path M"] = run_path_m(torch, log_root)
+        with phase("path M16"):
+            _, by_path["path M16"] = run_path_m(torch, log_root, "path M16",
+                                                n_series=16)
+        with phase("path S"):
+            by_path["path S"] = run_path_s(torch, log_root)
+        with phase("path R"):
+            r_state, by_path["path R"], by_path[
+                "path R, ATen batch norm"] = run_path_r(torch, log_root)
+        with phase("smoke presets"):
+            by_path.update(run_smoke_presets(torch, log_root))
+        with phase("path C"):
+            # path C grafts from the main path's checkpoint directory
+            main_ckpt = os.path.join(
+                set_path(smoke_cfg("paper_table1_k400", 8, log_root)),
+                "model")
+            clf_state, path_c = run_path_c(torch, log_root, main_ckpt)
+            by_path.update(path_c)
+        with phase("path P"):
+            by_path.update(run_path_p(torch, log_root))
+        with phase("path G"):
+            g_state, path_g = run_path_g(torch, log_root)
+            by_path.update(path_g)
+        with phase("path M resumed"):
+            by_path.update(run_path_m_resume(torch, log_root))
+        with phase("backbone steps"):
+            by_path.update(run_backbone_steps(torch, log_root))
+        with phase("path D"):
+            by_path.update(run_path_d(torch, log_root, r_state))
+        with phase("path V"):
+            by_path.update(run_path_v(torch, log_root, state, g_state))
+        with phase("path E"):
+            by_path["path E"] = run_path_e(torch, log_root,
+                                           path_c_cfg(log_root))
+        with phase("path J"):
+            by_path.update(run_path_j(torch, log_root))
+        with phase("path F"):
+            path_f, path_f_summary = run_path_f(torch, log_root)
+            by_path.update(path_f)
+        with phase("features on card"):
+            check_features_on_card(torch, log_root, state, moco_state)
+        with phase("learning"):
+            run_learning(torch, log_root)
+        with phase("path K"):
+            by_path.update(run_soak_paths(torch, log_root))
+        with phase("path B"):
+            by_path.update(run_bench_phase(torch))
         for kernel in kernels:
             # each kernel's count on the main path of the slice that ported
             # it (path R for the third slice's, the main path's bf16 step
@@ -4816,62 +5027,44 @@ def main(argv: list[str] | None = None) -> int:
         sums = next(k for k in kernels if k["name"] == "channel_sums")
         sums["path_g_launches_per_step"] = by_path[
             "path G, DUALVAR_BN_STATS=pallas"]["channel_sums"] / PATH_S_STEPS
-        sums["path_g_step"] = check_sums_on_path_g(
-            torch, path_g_cfg(8, log_root), g_state, floor)
-        sums["profiler_kernels_a_call"] = len(check_sums_profiler(torch))
+        with phase("channel_sums on path G"):
+            sums["path_g_step"] = check_sums_on_path_g(
+                torch, path_g_cfg(8, log_root), g_state, floor)
+            sums["profiler_kernels_a_call"] = len(check_sums_profiler(torch))
         aug = next(k for k in kernels if k["name"] == "aug_fused")
-        aug["path_c"] = check_aug_classifier_shapes(torch, device)
-        aug["f32_error_sources"] = diagnose_aug_f32_margin(torch, device)
+        with phase("aug_fused at path C's shapes"):
+            aug["path_c"] = check_aug_classifier_shapes(torch, device)
         # the unfused path beside the kernel (path F): no launch of it
         aug["path_f_unfused"] = path_f_summary["unfused"]
-        conv = next(k for k in kernels if k["name"] == "conv3d_bn_stats_bf16")
-        conv["path_r_layer1"] = check_conv_on_path_r(
-            torch, path_r_cfg(8, log_root), r_state)
-        conv["c6_diagnosis"] = diagnose_conv_bf16_margin(torch, device)
-        for batch_size in (8, 32):
-            time_train_steps(torch, smoke_cfg(
-                "paper_table1_k400", batch_size, log_root))
-            for mode in ("clip-sr-tc", "clip-sr-dtw"):
-                time_train_steps(torch, smoke_cfg(
-                    MOCO_PRESET, batch_size, log_root, mode=mode))
-        # path M16: the two modes' difference is soft-DTW at 16x16 and its
-        # cost tensor
-        for batch_size in (8, 32):
-            for mode in ("clip-sr-tc", "clip-sr-dtw"):
-                time_train_steps(torch, smoke_cfg(
-                    MOCO_PRESET, batch_size, log_root, mode=mode,
-                    n_series=16))
-        time_path_r(torch, log_root)
-        # B=4 steps last about 20 ms: five windows of 20 steps show the
-        # host clock's spread
-        time_train_steps(torch, path_c_cfg(log_root, 4), n=20, windows=5)
-        time_train_steps(torch, path_c_cfg(log_root, 32, videos=32),
-                         windows=3)
-        time_train_steps(torch, path_g_cfg(8, log_root), windows=5)
-        with bn_stats_env(True):
-            time_train_steps(torch, path_g_cfg(8, log_root), windows=5)
-        time_train_steps(torch, path_g_cfg(32, log_root, videos=32),
-                         windows=3)
-        check_f32_forward(torch, "paper_table1_k400",
-                          smoke_cfg("paper_table1_k400", 2, log_root), state)
-        check_f32_forward(
-            torch, "path M",
-            smoke_cfg(MOCO_PRESET, 2, log_root, mode="clip-sr-dtw"),
-            moco_state)
-        with bn_stats_env(True):
-            check_f32_forward(torch, "path R", path_r_cfg(2, log_root),
-                              r_state, want_sums=R3D_BATCH_NORMS)
-        check_f32_classifier(torch, path_c_cfg(log_root), clf_state)
-        with bn_stats_env(True):
-            # no backward: one call a batch norm, two backbone passes
-            check_f32_forward(torch, "path G", path_g_cfg(2, log_root),
-                              g_state, want_sums=2 * S3DG_BATCH_NORMS,
-                              feature_atol=FEATURE_F32_ATOL)
+        conv = next(k for k in kernels
+                    if k["name"] == "conv3d_bn_stats_bf16")
+        with phase("conv3d_bn_stats on path R"):
+            conv["path_r_layer1"] = check_conv_on_path_r(
+                torch, path_r_cfg(8, log_root), r_state)
+        with phase("f32 forwards"):
+            check_f32_forward(torch, "paper_table1_k400",
+                              smoke_cfg("paper_table1_k400", 2, log_root),
+                              state)
+            check_f32_forward(
+                torch, "path M",
+                smoke_cfg(MOCO_PRESET, 2, log_root, mode="clip-sr-dtw"),
+                moco_state)
+            with bn_stats_env(True):
+                check_f32_forward(torch, "path R", path_r_cfg(2, log_root),
+                                  r_state, want_sums=R3D_BATCH_NORMS)
+            check_f32_classifier(torch, path_c_cfg(log_root), clf_state)
+            with bn_stats_env(True):
+                # no backward: one call a batch norm, two backbone passes
+                check_f32_forward(torch, "path G", path_g_cfg(2, log_root),
+                                  g_state, want_sums=2 * S3DG_BATCH_NORMS,
+                                  feature_atol=FEATURE_F32_ATOL)
     finally:
         shutil.rmtree(log_root, ignore_errors=True)
 
-    print(f"chip_smoke: {time.perf_counter() - start:.1f} s from start to "
-          "end, the kernels' build included", flush=True)
+    total = time.perf_counter() - start
+    print(f"chip_smoke: {total:.1f} s from start to end, the kernels' build "
+          "included", flush=True)
+    print(phase.line(total))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

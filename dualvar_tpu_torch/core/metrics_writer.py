@@ -8,7 +8,9 @@ PlotterThread) under the local/ and global/ namespaces (pretrain.py:
 sink (one object a scalar: ``tag``, ``value``, ``step``, ``ts``), PNG files
 under ``{log_dir}/img/`` the image sink (``.npy`` where pillow is missing),
 and tensorboardX, where it imports, gets the same items from the same
-queue.
+queue. A write that fails, or a queue that does not drain, makes
+``close()`` raise (ROADMAP C.9: the JAX package's writer prints the first
+and ignores the second).
 """
 
 from __future__ import annotations
@@ -21,10 +23,17 @@ import time
 
 import numpy as np
 
+# how long ``MetricsWriter.close()`` waits for the queue to drain
+JOIN_TIMEOUT_S = 60.0
+
 
 class MetricsWriter:
-    """One writer thread drains a queue of scalars and images; ``close()``
-    writes what is queued and joins it."""
+    """One writer thread drains a queue of scalars and images. A write
+    that fails is counted and the drain goes on with the next item;
+    ``close()`` writes what is queued, joins the thread and raises
+    ``MetricsWriteError`` if any item was dropped or the thread has not
+    ended within ``JOIN_TIMEOUT_S``. The file is closed only after the
+    thread has ended."""
 
     def __init__(self, log_dir: str, use_tensorboard: bool = True):
         os.makedirs(log_dir, exist_ok=True)
@@ -38,6 +47,9 @@ class MetricsWriter:
                 self._tb = SummaryWriter(logdir=log_dir)
             except ImportError:
                 pass
+        # written by the drain thread only; read by close() after the join
+        self.dropped = 0
+        self.first_error: str | None = None
         self._q: queue.Queue = queue.Queue()
         self._thread = threading.Thread(target=self._drain, daemon=True)
         self._thread.start()
@@ -90,15 +102,34 @@ class MetricsWriter:
                 self._jsonl.flush()
                 if self._tb is not None:
                     self._tb.add_scalar(tag, value, step)
-            except Exception as e:  # a bad item must not kill the sink
+            except Exception as e:  # a bad item must not stop the sink
                 # (disk full, unwritable img dir, TensorBoard failure): the
-                # later scalars and images still matter more than this one
-                print(f"[metrics_writer] dropped {kind} {tag!r}: {e}",
-                      flush=True)
+                # later items are still written, and close() reports this
+                self.dropped += 1
+                if self.first_error is None:
+                    self.first_error = f"{kind} {tag!r}: {e!r}"
 
     def close(self):
+        """Write what is queued and end the thread, then close the sinks.
+        Raises ``MetricsWriteError`` if the thread has not ended within
+        ``JOIN_TIMEOUT_S`` (the file is then left open under it) or if any
+        item was dropped."""
         self._q.put(("stop", "", 0.0, 0))
-        self._thread.join(timeout=5)
+        self._thread.join(timeout=JOIN_TIMEOUT_S)
+        if self._thread.is_alive():
+            raise MetricsWriteError(
+                f"metrics writer under {self.log_dir}: the writer thread "
+                f"did not end within {JOIN_TIMEOUT_S} s; "
+                f"{self._q.qsize()} items still queued, {self.dropped} "
+                f"dropped so far (first error: {self.first_error})")
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+        if self.dropped:
+            raise MetricsWriteError(
+                f"metrics writer under {self.log_dir}: {self.dropped} items "
+                f"dropped; first error: {self.first_error}")
+
+
+class MetricsWriteError(RuntimeError):
+    """A ``MetricsWriter`` lost items or did not finish."""

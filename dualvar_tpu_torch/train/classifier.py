@@ -412,10 +412,12 @@ def train(cfg: ClassifierConfig, max_steps: int | None = None,
     finally:
         loader.close()
         val_loader.close()
-        if writer:
-            writer.close()
-        if store is not None:
-            store.close()
+        try:
+            if writer:  # raises if a metric was lost
+                writer.close()
+        finally:
+            if store is not None:
+                store.close()
     return final
 
 

@@ -561,10 +561,12 @@ def train(cfg: PretrainConfig, max_steps: int | None = None,
     finally:
         profiler.finish()
         loader.close()
-        if writer:
-            writer.close()
-        if store is not None:
-            store.close()
+        try:
+            if writer:  # raises if a metric was lost
+                writer.close()
+        finally:
+            if store is not None:
+                store.close()
 
     logger.info(
         f"Training from ep {start_epoch} to ep {cfg.optim.epochs} finished")

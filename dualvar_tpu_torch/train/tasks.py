@@ -135,7 +135,11 @@ class MoCoTask:
 def make_task(cfg: ModelConfig, generator: torch.Generator | None = None):
     """Model registry (reference get_model, pretrain.py:61-77). Parameters
     are initialised from torch's global generator, MoCo's queues from
-    ``generator``."""
+    ``generator``. ``packed_encode`` on a naked model, which has no dual
+    pass to merge, raises (ROADMAP C.9: the JAX package ignores it)."""
+    if cfg.packed_encode and cfg.model in ("simclr_naked", "moco_naked"):
+        raise ValueError(f"packed_encode has no meaning for {cfg.model!r}: "
+                         "it merges the TimeSeriesV4 dual pass")
     if cfg.model in ("simclr_naked", "simclr_timeseriesv4"):
         return SimCLRTask(cfg)
     if cfg.model in ("moco_naked", "moco_timeseriesv4"):

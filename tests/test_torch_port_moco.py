@@ -281,3 +281,20 @@ def test_from_jax_task_state_fills_every_key_and_checks_shapes():
                             module=model)
     with pytest.raises(KeyError, match="unknown"):
         from_jax_task_state(params, stats, {**moco, "step": 3}, module=model)
+
+
+@pytest.mark.parametrize("model", ["simclr_naked", "moco_naked"])
+def test_packed_encode_on_a_naked_model_raises(model):
+    """A naked model has no dual pass for ``packed_encode`` to merge: the
+    port refuses the flag where the JAX package ignores it (ROADMAP C.9);
+    the TimeSeriesV4 models still take it."""
+    from dualvar_tpu_torch.core.config import ModelConfig
+    from dualvar_tpu_torch.train.tasks import make_task
+
+    cfg = ModelConfig(net="r3d", model=model, moco_k=16, packed_encode=True)
+    with pytest.raises(ValueError, match="packed_encode"):
+        make_task(cfg)
+    tsv4 = ModelConfig(net="r3d", model=model.replace("naked",
+                                                       "timeseriesv4"),
+                       moco_k=16, packed_encode=True)
+    assert make_task(tsv4).model.packed_encode

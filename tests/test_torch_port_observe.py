@@ -6,6 +6,9 @@ the models' ``get_features``, the pretrain trainer's ``visualize`` and
 ``get_features`` is held against JAX's on the same numpy-made weights and
 clip (B=1, T=4, 32x32, as ``tests/test_visualize.py``) at the backbone band
 (atol 2e-4, rtol 1e-3); the writers' lines, tags and file names exactly.
+Where the port's writer departs from the JAX one on purpose (ROADMAP C.9),
+a lost write or a drain that does not end makes ``close()``, and so each
+trainer's run, raise.
 """
 
 import dataclasses
@@ -13,6 +16,7 @@ import glob
 import json
 import os
 import sys
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +32,9 @@ from dualvar_tpu_torch.aug import functional as F
 from dualvar_tpu_torch.core.config import (CLASSIFIER_PRESETS,
                                            PRETRAIN_PRESETS, ModelConfig)
 from dualvar_tpu_torch.core.convert import from_jax_variables
-from dualvar_tpu_torch.core.metrics_writer import MetricsWriter
+from dualvar_tpu_torch.core import metrics_writer as MW
+from dualvar_tpu_torch.core.metrics_writer import (MetricsWriteError,
+                                                   MetricsWriter)
 from dualvar_tpu_torch.core.utils import batch_denorm
 from dualvar_tpu_torch.models.ssl.moco import MoCoEncoder
 from dualvar_tpu_torch.models.ssl.simclr import (SimCLRNaked,
@@ -113,6 +119,130 @@ def test_metrics_writer_falls_back_to_npy_without_pillow(tmp_path,
         a = np.load(tmp_path / "jax" / "img" / name)
         b = np.load(tmp_path / "port" / "img" / name)
         assert a.dtype == b.dtype == np.uint8 and np.array_equal(a, b)
+
+
+class _DeadSink:
+    """A metrics file whose every write fails, as on a full disk."""
+
+    closed = False
+
+    def write(self, text):
+        raise OSError(28, "No space left on device")
+
+    def flush(self):
+        pass
+
+    def close(self):
+        self.closed = True
+
+
+class _HeldSink:
+    """A metrics file whose writes wait for ``release``."""
+
+    def __init__(self, real):
+        self.real, self.closed = real, False
+        self.release = threading.Event()
+
+    def write(self, text):
+        self.release.wait(30)
+        self.real.write(text)
+
+    def flush(self):
+        self.real.flush()
+
+    def close(self):
+        self.closed = True
+        self.real.close()
+
+
+class _DeadWriter(MetricsWriter):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._jsonl.close()
+        self._jsonl = _DeadSink()
+
+
+class _HeldWriter(MetricsWriter):
+    held: list = []
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._jsonl = _HeldSink(self._jsonl)
+        self.held.append(self)
+
+
+def test_metrics_writer_counts_failed_writes_and_close_raises(tmp_path):
+    """A sink that raises on every write: the drain goes on with the next
+    item, the images are still written, and ``close()`` raises with the
+    count and the first error (the JAX writer prints and goes on)."""
+    w = _DeadWriter(str(tmp_path), use_tensorboard=False)
+    for step in range(3):
+        w.add_scalar("local/clip_loss", 1.0, step)
+    w.add_image("gray", np.zeros((4, 4), np.float32), 0)
+    with pytest.raises(MetricsWriteError, match=r"3 items dropped; first "
+                       r"error: scalar 'local/clip_loss'.*No space left"):
+        w.close()
+    assert not w._thread.is_alive() and w._jsonl.closed
+    assert os.listdir(tmp_path / "img") == ["gray_0.png"]
+
+
+def test_metrics_writer_close_raises_when_the_drain_is_held(tmp_path,
+                                                            monkeypatch):
+    """A drain held past ``JOIN_TIMEOUT_S``: ``close()`` raises and leaves
+    the file open under the thread, which still writes it once let go."""
+    monkeypatch.setattr(MW, "JOIN_TIMEOUT_S", 0.2)
+    _HeldWriter.held = []
+    w = _HeldWriter(str(tmp_path), use_tensorboard=False)
+    w.add_scalar("local/clip_loss", 1.5, 3)
+    with pytest.raises(MetricsWriteError, match="did not end within 0.2 s"):
+        w.close()
+    assert w._thread.is_alive() and not w._jsonl.closed
+    w._jsonl.release.set()
+    w._thread.join(10)
+    assert not w._thread.is_alive()
+    w._jsonl.close()
+    assert [x["value"] for x in _tags(tmp_path / "metrics.jsonl")] == [1.5]
+
+
+def test_metrics_writer_close_returns_quietly_when_all_is_written(tmp_path):
+    w = MetricsWriter(str(tmp_path), use_tensorboard=False)
+    w.add_scalar("local/clip_loss", 1.5, 3)
+    w.add_image("gray", np.zeros((4, 4), np.float32), 0)
+    assert w.close() is None
+    assert not w._thread.is_alive() and w._jsonl.closed
+    assert w.dropped == 0
+    assert [x["step"] for x in _tags(tmp_path / "metrics.jsonl")] == [3]
+
+
+@pytest.mark.parametrize("fault", ["dropped", "held"])
+def test_pretrain_run_raises_when_its_metrics_are_lost(tmp_path, monkeypatch,
+                                                       fault):
+    """The trainer lets the writer's error reach its caller; its checkpoint
+    store is closed all the same."""
+    if fault == "held":
+        monkeypatch.setattr(MW, "JOIN_TIMEOUT_S", 0.2)
+        _HeldWriter.held = []
+    writer, match = {"dropped": (_DeadWriter, "items dropped"),
+                     "held": (_HeldWriter, "did not end")}[fault]
+    monkeypatch.setattr(TP, "MetricsWriter", writer)
+    closed = []
+    store_close = TP.CheckpointStore.close
+    monkeypatch.setattr(TP.CheckpointStore, "close", lambda self: (
+        closed.append(True), store_close(self)))
+    with pytest.raises(MetricsWriteError, match=match):
+        TP.train(_smoke_pretrain_cfg(tmp_path), max_steps=2, device="cpu")
+    assert closed
+    for w in _HeldWriter.held:
+        w._jsonl.release.set()
+        w._thread.join(10)
+        w._jsonl.close()
+
+
+def test_classifier_run_raises_when_its_metrics_are_lost(tmp_path,
+                                                         monkeypatch):
+    monkeypatch.setattr(TC, "MetricsWriter", _DeadWriter)
+    with pytest.raises(MetricsWriteError, match="items dropped"):
+        TC.train(_smoke_classifier_cfg(tmp_path), max_steps=2, device="cpu")
 
 
 def _features_pair(kind):
@@ -276,15 +406,19 @@ def test_profile_window_counts_steps_and_ends_with_the_run(tmp_path):
     assert counts[1] > 0 and counts[0] == 2 * counts[1]
 
 
-def test_classifier_writes_local_and_val_metrics(tmp_path):
+def _smoke_classifier_cfg(log_root):
     cfg = CLASSIFIER_PRESETS["smoke"]
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, seq_len=T, img_dim=S,
                                       scale_hw=(40, 36), workers=2,
                                       synthetic_videos=4),
         optim=dataclasses.replace(cfg.optim, batch_size=2),
-        run=dataclasses.replace(cfg.run, log_root=str(tmp_path),
+        run=dataclasses.replace(cfg.run, log_root=str(log_root),
                                 print_freq=1))
+
+
+def test_classifier_writes_local_and_val_metrics(tmp_path):
+    cfg = _smoke_classifier_cfg(tmp_path)
     final = TC.train(cfg, max_steps=2, device="cpu")
     exp = TC.set_path(cfg, create=False)
     lines = _tags(os.path.join(exp, "img", "train", "metrics.jsonl"))
