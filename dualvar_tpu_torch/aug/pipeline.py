@@ -39,6 +39,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core import spans
 from ..ops.aug_fused import aug_fused, aug_fused_plain
 from . import functional as F
 
@@ -97,7 +98,9 @@ def _draw_jitter(generator: torch.Generator, cfg: AugConfig,
     f = F.sample_jitter_factors(g, cfg.seq_len, mode=cfg.jitter_mode,
                                 shape=shape)
     drawn = torch.stack([f[n] for n in F.JITTER_NAMES], dim=-2)
-    ident = torch.tensor([1.0, 1.0, 1.0, 0.0], device=g.device)[:, None]
+    # a copy from the host: on the card it waits for the stream
+    with spans.sync("jitter_identity"):
+        ident = torch.tensor([1.0, 1.0, 1.0, 0.0], device=g.device)[:, None]
     if cfg.jitter_mode == "consistent":  # one draw a clip: (B, ..., 4)
         drawn, ident = drawn[..., 0], ident[:, 0]
     factors = torch.where(apply.reshape(*shape, *([1] * (drawn.dim()

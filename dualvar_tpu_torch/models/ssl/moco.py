@@ -55,7 +55,7 @@ import copy
 import torch
 from torch import nn
 
-from ...core import dist
+from ...core import dist, spans
 from ..backbones import select_backbone
 from ..heads import MLPHead
 from ..layers import global_avg_pool3d, l2_normalize, local_batch_norm
@@ -258,7 +258,8 @@ class MoCo(nn.Module):
             if not self.training:
                 return self.encoder_k(x2)
             # no collective: the parameters are equal on every rank
-            momentum_update(self.encoder_q, self.encoder_k, self.m)
+            with spans.span("dualvar.moco.momentum_update"):
+                momentum_update(self.encoder_q, self.encoder_k, self.m)
             if not self.shuffle_bn_groups:
                 return self.encoder_k(x2)
             if bn_perm is None:
@@ -285,18 +286,22 @@ class MoCo(nn.Module):
 
     def enqueue(self, k: torch.Tensor, series_k: torch.Tensor | None) -> None:
         """Write this step's keys of every rank (one all-gather of both) into
-        both queues at the shared pointer and advance it by their count."""
-        if series_k is not None:
-            series_k = series_k.reshape(k.shape[0], -1)
-        if dist.active():
-            both = k if series_k is None else torch.cat([k, series_k], dim=1)
-            both = dist.all_gather(both.detach())
-            k, series_k = both[:, :k.shape[1]], (
-                None if series_k is None else both[:, k.shape[1]:])
-        dequeue_and_enqueue(self.queue, self.queue_ptr, k)
-        if series_k is not None:
-            dequeue_and_enqueue(self.series_queue, self.queue_ptr, series_k)
-        self.queue_ptr.add_(k.shape[0]).remainder_(self.queue.shape[0])
+        both queues at the shared pointer and advance it by their count (the
+        span ``dualvar.moco.enqueue``)."""
+        with spans.span("dualvar.moco.enqueue"):
+            if series_k is not None:
+                series_k = series_k.reshape(k.shape[0], -1)
+            if dist.active():
+                both = (k if series_k is None
+                        else torch.cat([k, series_k], dim=1))
+                both = dist.all_gather(both.detach())
+                k, series_k = both[:, :k.shape[1]], (
+                    None if series_k is None else both[:, k.shape[1]:])
+            dequeue_and_enqueue(self.queue, self.queue_ptr, k)
+            if series_k is not None:
+                dequeue_and_enqueue(self.series_queue, self.queue_ptr,
+                                    series_k)
+            self.queue_ptr.add_(k.shape[0]).remainder_(self.queue.shape[0])
 
     def forward(self, block: torch.Tensor, perm: torch.Tensor | None = None,
                 generator: torch.Generator | None = None,
@@ -319,7 +324,9 @@ def moco_naked_forward(model: MoCo, block: torch.Tensor,
     planar = planar_views(block)
     q, _ = model.encoder_q(planar[:, 0])
     k, _ = model.key_pass(planar[:, 1], bn_perm, generator)
-    with torch.autocast(device_type=block.device.type, enabled=False):
+    with torch.autocast(device_type=block.device.type, enabled=False), \
+            spans.span("dualvar.losses", device=True), \
+            spans.span("dualvar.loss.clip"):
         # a copy: the queue is kept for the backward of q and written below
         ret = moco_contrast_loss(q, k, model.queue.clone(),
                                  model.temperature, "clip_")
@@ -371,16 +378,18 @@ def moco_timeseries_forward(model: MoCo, block: torch.Tensor,
 
     autocast_off = torch.autocast(device_type=block.device.type,
                                   enabled=False)
-    with autocast_off:
+    with autocast_off, spans.span("dualvar.losses", device=True):
         # copies: the queues are kept for the backward of q and written below
-        ret = moco_contrast_loss(q, k, model.queue.clone(),
-                                 model.temperature, "clip_")
+        with spans.span("dualvar.loss.clip"):
+            ret = moco_contrast_loss(q, k, model.queue.clone(),
+                                     model.temperature, "clip_")
         if "tc" in model.mode or "dtw" in model.mode:
-            ret.update(moco_tc_contrast_loss(
-                series_q, series_k, model.series_queue.clone(),
-                model.aligned_T, "tc_",
-                align="dtw" if "dtw" in model.mode else "mean",
-                dtw_gamma=model.dtw_gamma))
+            with spans.span("dualvar.loss.tc"):
+                ret.update(moco_tc_contrast_loss(
+                    series_q, series_k, model.series_queue.clone(),
+                    model.aligned_T, "tc_",
+                    align="dtw" if "dtw" in model.mode else "mean",
+                    dtw_gamma=model.dtw_gamma))
     if model.training:
         model.enqueue(k, series_k)
 
@@ -388,12 +397,14 @@ def moco_timeseries_forward(model: MoCo, block: torch.Tensor,
         if not packed_sr:
             dual = enc_q.series_embed(torch.cat([aug_x1, shuffled]))
             aug_series, sh_raw = dual[:B], dual[B:]
-        with autocast_off:
+        with autocast_off, spans.span("dualvar.losses", device=True):
             calibrated = calibrate_shuffled(sh_raw, perm)
             pair_unaug = torch.stack([series_q, calibrated], dim=2)
             pair_aug = torch.stack([aug_series, calibrated], dim=2)
-            ret.update(shuffle_rank_loss(pair_unaug, 0.05, 0.5,
-                                         "unaug_ranking_", clip_max=None))
-            ret.update(shuffle_rank_loss(pair_aug, 0.05, 0.5,
-                                         "aug_ranking_", clip_max=None))
+            with spans.span("dualvar.loss.unaug_ranking"):
+                ret.update(shuffle_rank_loss(pair_unaug, 0.05, 0.5,
+                                             "unaug_ranking_", clip_max=None))
+            with spans.span("dualvar.loss.aug_ranking"):
+                ret.update(shuffle_rank_loss(pair_aug, 0.05, 0.5,
+                                             "aug_ranking_", clip_max=None))
     return ret

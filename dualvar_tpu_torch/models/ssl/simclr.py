@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...core import spans
 from ..backbones import select_backbone
 from ..heads import MLPHead
 from ..layers import global_avg_pool3d, l2_normalize
@@ -122,11 +123,13 @@ class SimCLRNaked(nn.Module):
         planar = planar_views(block)
         pooled = global_avg_pool3d(self.backbone(
             planar.reshape(B * 2, *planar.shape[2:]))).float()
-        with torch.autocast(device_type=block.device.type, enabled=False):
+        with torch.autocast(device_type=block.device.type, enabled=False), \
+                spans.span("dualvar.losses", device=True):
             emb = l2_normalize(
                 self.clip_head(pooled) if self.nonlinear else pooled, axis=1)
-            return nt_xent_loss(emb.reshape(B, 2, -1), self.temperature,
-                                "clip_")
+            with spans.span("dualvar.loss.clip"):
+                return nt_xent_loss(emb.reshape(B, 2, -1), self.temperature,
+                                    "clip_")
 
     def get_features(self, x: torch.Tensor) -> list[torch.Tensor]:
         """``stage_attention_maps`` of the backbone (reference
@@ -199,23 +202,28 @@ class SimCLRTimeSeriesV4(nn.Module):
             if self.with_sr:
                 sh_pooled = self.pool_backbone(shuffled)
 
-        with torch.autocast(device_type=block.device.type, enabled=False):
+        with torch.autocast(device_type=block.device.type, enabled=False), \
+                spans.span("dualvar.losses", device=True):
             return self._losses(B, pooled, sh_pooled, perm)
 
     def _losses(self, B, pooled, sh_pooled, perm):
+        """The heads and the loss terms, each term in its span
+        ``dualvar.loss.<term>``."""
         ret: dict[str, torch.Tensor] = {}
         if self.with_clip:
             clip_emb = l2_normalize(
                 self.clip_head(pooled) if self.nonlinear else pooled, axis=1)
             clip_emb = clip_emb.reshape(B, 3, -1)[:, :2]
-            ret.update(nt_xent_loss(clip_emb, self.temperature, "clip_"))
+            with spans.span("dualvar.loss.clip"):
+                ret.update(nt_xent_loss(clip_emb, self.temperature, "clip_"))
 
         series = l2_normalize(self.series_head(pooled).reshape(
             B, 3, self.n_series, self.series_dim), axis=-1)
         if self.with_tc:
-            ret.update(tc_contrast_loss_global(
-                series[:, :2], self.aligned_T, "tc_", align=self.tc_align,
-                dtw_gamma=self.dtw_gamma))
+            with spans.span("dualvar.loss.tc"):
+                ret.update(tc_contrast_loss_global(
+                    series[:, :2], self.aligned_T, "tc_",
+                    align=self.tc_align, dtw_gamma=self.dtw_gamma))
 
         if self.with_sr:
             sh_series = l2_normalize(self.series_head(sh_pooled).reshape(
@@ -225,10 +233,12 @@ class SimCLRTimeSeriesV4(nn.Module):
             # pair with the calibrated shuffled embedding (simclr.py:395-398)
             pair_v0 = torch.stack([series[:, 0], calibrated], dim=2)
             pair_v2 = torch.stack([series[:, 2], calibrated], dim=2)
-            ret.update(shuffle_rank_loss(
-                pair_v0, self.shufflerank_theta, 0.5, "aug_ranking_",
-                clip_max=5.0))
-            ret.update(shuffle_rank_loss(
-                pair_v2, self.shufflerank_theta, 0.5, "unaug_ranking_",
-                clip_max=5.0))
+            with spans.span("dualvar.loss.aug_ranking"):
+                ret.update(shuffle_rank_loss(
+                    pair_v0, self.shufflerank_theta, 0.5, "aug_ranking_",
+                    clip_max=5.0))
+            with spans.span("dualvar.loss.unaug_ranking"):
+                ret.update(shuffle_rank_loss(
+                    pair_v2, self.shufflerank_theta, 0.5, "unaug_ranking_",
+                    clip_max=5.0))
         return ret

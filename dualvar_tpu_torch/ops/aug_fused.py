@@ -45,6 +45,7 @@ import ctypes
 import torch
 
 from ..aug import functional as F
+from ..core import spans
 from .build import load_library
 
 _TAPS = 13  # matches aug/functional.py:gaussian_blur default
@@ -205,7 +206,9 @@ def _check(clips_u8, orders, factors, blur, out_dtype,
     # every row a permutation of 0..3 (reads the values: on a CUDA tensor
     # this waits for the stream once per call)
     want = torch.arange(4, dtype=torch.int32, device=orders.device)
-    if not bool((orders.sort(dim=1).values == want).all()):
+    with spans.sync("aug_check"):
+        ok = bool((orders.sort(dim=1).values == want).all())
+    if not ok:
         raise ValueError("every row of orders must be a permutation of 0..3")
 
 

@@ -19,6 +19,8 @@ import os
 import shutil
 import subprocess
 
+from ..core import spans
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
@@ -74,21 +76,23 @@ def ptxas_log_path(name: str, source: str | None = None) -> str:
 def load_library(name: str, source: str | None = None) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` (or ``source`` with kernel ``name``'s
     flags) if its library or the library's ptxas log is missing, and load
-    it."""
-    src = _source(name, source)
-    lib = library_path(name, source)
-    log = ptxas_log_path(name, source)
-    if not (os.path.exists(lib) and os.path.exists(log)):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *_flags(name), "-Xptxas", "-v", "-o", tmp, src],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        with open(log, "w") as fh:
-            fh.write(proc.stderr)
-        os.replace(tmp, lib)  # atomic: a concurrent process loads a whole file
-    return ctypes.CDLL(lib)
+    it, in the span ``dualvar.setup.kernel_load``."""
+    with spans.span("dualvar.setup.kernel_load"):
+        src = _source(name, source)
+        lib = library_path(name, source)
+        log = ptxas_log_path(name, source)
+        if not (os.path.exists(lib) and os.path.exists(log)):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            proc = subprocess.run(
+                [_nvcc(), *_flags(name), "-Xptxas", "-v", "-o", tmp, src],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                    f"{proc.stdout}\n{proc.stderr}")
+            with open(log, "w") as fh:
+                fh.write(proc.stderr)
+            # atomic: a concurrent process loads a whole file
+            os.replace(tmp, lib)
+        return ctypes.CDLL(lib)

@@ -46,9 +46,10 @@ Process 0 writes the metrics through ``core/metrics_writer.py`` under
 tensorboardX imports): ``local/<metric>`` at each logged step,
 ``global/<name>_loss`` and ``global/<name>_acc`` at each epoch's end.
 ``--profile_steps N`` traces N steps after the first with
-``torch.profiler`` (the card's kernels included) into
-``{exp}/img/profile``. ``--visualize`` writes input frames and per-stage
-attention maps as images instead of training (``visualize``).
+``torch.profiler`` (the card's kernels included, and the program's
+``dualvar.*`` spans, ``core/spans.py``) into ``{exp}/img/profile``.
+``--visualize`` writes input frames and per-stage attention maps as images
+instead of training (``visualize``).
 
 ``--optim adam`` trains with AdamW (``make_optimizer``); ``--remat``
 recomputes the backbone's activations in the backward pass
@@ -70,7 +71,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..aug.pipeline import AugConfig, pretrain_batch
-from ..core import dist
+from ..core import dist, spans
 from ..core.checkpoint import (CheckpointStore, load_state_dict,
                                merge_matching_leaves)
 from ..core.config import PRETRAIN_PRESETS, PretrainConfig
@@ -140,20 +141,31 @@ def make_train_step(task, optimizer, scheduler, aug_cfg: AugConfig,
                     autocast_dtype: torch.dtype = torch.float32):
     """Returns ``train_step(frames_u8, generator) -> metrics``. The generator
     feeds the augmentation draws and the segment shuffle. Under a process
-    group the gradient is averaged over the processes before the update."""
+    group the gradient is averaged over the processes before the update.
+    Each call is the span ``dualvar.step``, its stages the spans
+    ``dualvar.step.<stage>`` (``core/spans.py``)."""
     def train_step(frames_u8: torch.Tensor, generator: torch.Generator):
-        with torch.no_grad():
+        with spans.span(spans.STEP):
+            return _step(frames_u8, generator)
+
+    def _step(frames_u8, generator):
+        with torch.no_grad(), spans.span("dualvar.step.aug", device=True):
             block = pretrain_batch(generator, frames_u8, aug_cfg)
         with step_context(frames_u8.device.type, autocast_dtype) as autocast:
-            with autocast():
-                ret = task.forward(block, generator=generator)
-            loss = total_loss(ret)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        dist.average_gradients(task.parameters())
-        optimizer.step()
-        scheduler.step()
-        with torch.no_grad():
+            with spans.span("dualvar.step.forward", device=True):
+                with autocast():
+                    ret = task.forward(block, generator=generator)
+                loss = total_loss(ret)
+            with spans.span("dualvar.step.backward", device=True):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+        if dist.active():
+            with spans.span("dualvar.step.grad_sync"):
+                dist.average_gradients(task.parameters())
+        with spans.span("dualvar.step.update", device=True):
+            optimizer.step()
+            scheduler.step()
+        with torch.no_grad(), spans.span("dualvar.step.metrics"):
             return compute_metrics(ret)
 
     return train_step
@@ -216,8 +228,10 @@ def aug_config(cfg: PretrainConfig) -> AugConfig:
 
 def build_task(cfg: PretrainConfig):
     """The task of ``cfg``, its parameters drawn from ``cfg.run.seed`` (the
-    process-global RNG is left untouched)."""
-    with torch.random.fork_rng(devices=[]):
+    process-global RNG is left untouched); the span
+    ``dualvar.setup.build_task``."""
+    with spans.span("dualvar.setup.build_task"), \
+            torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.run.seed)
         return make_task(cfg.model,
                          torch.Generator().manual_seed(cfg.run.seed))
@@ -370,8 +384,10 @@ class _StepProfiler:
     a run whose first step is ``first`` (the JAX trainer's window: the
     first step, which builds and warms up, is left out), CUDA activity
     included on the card; the trace goes to ``{directory}/rank<r>.pt.
-    trace.json``. A run that ends inside the window writes what it
-    traced."""
+    trace.json`` and holds the program's ``dualvar.*`` spans; after it
+    the log gets one line a span name over the traced steps
+    (``core/spans.py:summary``). A run that ends inside the window writes
+    what it traced."""
 
     def __init__(self, steps: int, first: int, directory: str,
                  device: torch.device, logger):
@@ -408,6 +424,10 @@ class _StepProfiler:
         self.prof = None
         self.logger.info(f"profiler trace of {self.traced} steps written to "
                          f"'{self.path}'")
+        profiled = [v for v in spans.steps() if v["profiled"]]
+        for line in spans.summary(profiled[-self.traced:] if self.traced
+                                  else []):
+            self.logger.info(f"span {line}")
 
 
 def train(cfg: PretrainConfig, max_steps: int | None = None,

@@ -97,10 +97,12 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - tic) * 1e3
 
-    # device kernels only: the operator rows repeat their kernels' time
+    # device kernels only: the operator rows repeat their kernels' time, and
+    # so do the spans' rows on the device (the program's dualvar.* spans)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)

@@ -11,9 +11,11 @@ a lost write or a drain that does not end makes ``close()``, and so each
 trainer's run, raise.
 """
 
+import collections
 import dataclasses
 import glob
 import json
+import logging
 import os
 import sys
 import threading
@@ -362,24 +364,51 @@ def _tags(path):
         return [json.loads(line) for line in fh]
 
 
-def _trace_convs(cfg):
-    """The convolution events of the run's profiler trace."""
+def _trace_events(cfg):
+    """The events of the run's profiler trace."""
     path = os.path.join(TP.set_path(cfg, create=False), "img", "profile",
                         "rank0.pt.trace.json")
     with open(path) as fh:
-        events = json.load(fh)["traceEvents"]
-    return sum(e.get("name") == "aten::conv3d" for e in events)
+        return json.load(fh)["traceEvents"]
+
+
+def _trace_convs(cfg):
+    """The convolution events of the run's profiler trace."""
+    return sum(e.get("name") == "aten::conv3d" for e in _trace_events(cfg))
 
 
 def test_pretrain_profile_steps_and_metrics(tmp_path):
     """``profile_steps=2`` traces steps 1 and 2 of 4 (the JAX trainer's
-    window) into ``{exp}/img/profile``, a Chrome trace of the CPU's ops;
-    ``metrics.jsonl`` holds ``local/<metric>`` at every logged step and
-    ``global/<name>_loss``, ``global/<name>_acc`` at the epoch's end, as
-    the JAX trainer writes them."""
+    window) into ``{exp}/img/profile``, a Chrome trace of the CPU's ops
+    and of the program's ``dualvar.*`` spans, and logs one line a span
+    name over the traced steps; ``metrics.jsonl`` holds
+    ``local/<metric>`` at every logged step and ``global/<name>_loss``,
+    ``global/<name>_acc`` at the epoch's end, as the JAX trainer writes
+    them."""
     cfg = _smoke_pretrain_cfg(tmp_path)
-    metrics = TP.train(cfg, max_steps=4, device="cpu", profile_steps=2)
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    logger = logging.getLogger("dualvar_tpu_torch")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        metrics = TP.train(cfg, max_steps=4, device="cpu", profile_steps=2)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
     assert _trace_convs(cfg) > 0
+    # the smoke preset's SimCLR has one loss term, the clip's
+    stages = ("dualvar.step", "dualvar.step.aug", "dualvar.step.forward",
+              "dualvar.losses", "dualvar.loss.clip", "dualvar.step.backward",
+              "dualvar.step.update", "dualvar.step.metrics")
+    names = collections.Counter(e.get("name") for e in _trace_events(cfg))
+    assert all(names[n] == 2 for n in stages), names
+    summary = [m for m in logged if m.startswith("span ")]
+    assert [m.split(":")[0][5:] for m in summary
+            if not m.startswith("span dualvar.sync.")] == list(stages)
+    assert all(m.endswith("a step over 2") for m in summary)
     exp = TP.set_path(cfg, create=False)
     lines = _tags(os.path.join(exp, "img", "pretrain", "metrics.jsonl"))
     local = [x for x in lines if x["tag"].startswith("local/")]
