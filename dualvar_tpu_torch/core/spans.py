@@ -28,6 +28,11 @@ path that makes the host wait for the device, each also counted as
 counted). On the CPU the same sites are spanned and counted; there
 they wait for nothing.
 
+``count(name)`` adds to a count of the open step, and outside a step does
+nothing: ``host_syncs`` (``sync``) and ``nchw_convs``
+(``models/layers.py:Conv3d``, a convolution whose 5-D input is not in
+``channels_last_3d`` memory: on the card, one that cuDNN transposes).
+
 The record is process-wide plain Python, with no lock: spans are opened on
 the thread that runs the step. ``reset()`` empties it (the tests).
 """
@@ -131,12 +136,18 @@ def span(name: str, device: bool = False) -> _Span:
     return _Span(name, device)
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the count ``name`` of the open step; outside a step,
+    nothing."""
+    step = _record.step
+    if step is not None:
+        step.counts[name] = step.counts.get(name, 0) + n
+
+
 def sync(site: str) -> _Span:
     """The span ``dualvar.sync.<site>`` around a call that makes the host
     wait for the device, counted as ``host_syncs`` in the open step."""
-    step = _record.step
-    if step is not None:
-        step.counts["host_syncs"] = step.counts.get("host_syncs", 0) + 1
+    count("host_syncs")
     return _Span(SYNC + site, False)
 
 

@@ -3,8 +3,9 @@
 Counterpart of ``dualvar_tpu/models/backbones/__init__.py``: name ->
 (module, {'feature_size': int}). Backbones take ``(B, C, T, H, W)`` clips and
 return 5-D feature maps, post-ReLU except ResNet-2d3d's, whose last block has
-no final ReLU (as in the reference). r50's width is its layer 4's true 1024,
-not the reference registry's 2048.
+no final ReLU (as in the reference); on the card the maps are in
+``channels_last_3d`` memory (``layers.card_layout``). r50's width is its
+layer 4's true 1024, not the reference registry's 2048.
 
 The registry variants: ``s3d_packed`` / ``s3dg_packed`` (the same function
 as ``s3d`` / ``s3dg`` with the branches packed, another parameter layout:

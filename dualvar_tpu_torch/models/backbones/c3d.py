@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..layers import BatchNorm, Conv3d, max_pool3d
+from ..layers import BatchNorm, Conv3d, card_layout, max_pool3d
 
 # (name, output channels) in order; a pool follows the names in _POOL_AFTER
 _STAGES = (("1", 64), ("2", 128), ("3a", 256), ("3b", 256), ("4a", 512),
@@ -34,6 +34,7 @@ class C3D(nn.Module):
             in_ch = ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = card_layout(x)
         for name, _ in _STAGES:
             conv, bn = getattr(self, f"conv{name}"), getattr(self, f"bn{name}")
             x = torch.relu(bn(conv(x)))

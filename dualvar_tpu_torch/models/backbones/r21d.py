@@ -28,7 +28,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..layers import BatchNorm, Conv3d
+from ..layers import BatchNorm, Conv3d, card_layout
 
 
 def _triple(x) -> tuple[int, int, int]:
@@ -151,7 +151,7 @@ class R2Plus1DNet(nn.Module):
             self.stages.append(names)
 
     def forward(self, x: torch.Tensor, multi_level: bool = False):
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.relu(self.bn1(self.conv1(card_layout(x))))
         feats = []
         for names in self.stages:
             for name in names:

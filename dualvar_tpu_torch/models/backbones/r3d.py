@@ -21,7 +21,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..layers import BatchNorm, Conv3d
+from ..layers import BatchNorm, Conv3d, card_layout
 
 
 class ResBlock3d(nn.Module):
@@ -71,7 +71,7 @@ class R3DNet(nn.Module):
                 self.blocks.append(name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.relu(self.bn1(self.conv1(card_layout(x))))
         for name in self.blocks:
             x = getattr(self, name)(x)
         return x

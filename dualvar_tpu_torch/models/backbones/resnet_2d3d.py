@@ -21,7 +21,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..layers import BatchNorm, Conv3d, kaiming_fan_out_init_, max_pool3d
+from ..layers import (BatchNorm, Conv3d, card_layout, kaiming_fan_out_init_,
+                      max_pool3d)
 
 
 def _conv(in_ch, out_ch, kernel_size, stride=1, padding=0) -> nn.Conv3d:
@@ -132,7 +133,7 @@ class ResNet2d3d(nn.Module):
                 self.blocks.append(name)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.relu(self.bn1(self.conv1(card_layout(x))))
         x = max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         for name in self.blocks:
             x = getattr(self, name)(x)

@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import BatchNorm, Conv3d, max_pool3d, normal_init_
+from ..layers import (BatchNorm, Conv3d, card_layout, max_pool3d,
+                      normal_init_)
 
 # block name -> out planes [b0, b1a, b1b, b2a, b2b, b3b] (reference
 # backbone/s3dg.py:135-217)
@@ -223,7 +224,7 @@ class S3D(nn.Module):
             in_ch = block.out_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.Conv_1a(x)
+        x = self.Conv_1a(card_layout(x))
         x = max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         x = self.Conv_2c(self.Conv_2b(x))
         for name, pool in _MIXED:

@@ -1,10 +1,20 @@
 """Shared building blocks for the 3D-CNN video backbones.
 
 Counterpart of ``dualvar_tpu/models/layers.py``. Inside the backbones all
-tensors are torch's ``(B, C, T, H, W)``; convolutions are ``nn.Conv3d`` (its
-default init is the init the JAX package copies: kaiming-uniform with
-a=sqrt(5), i.e. U(+-1/sqrt(fan_in))); S3D and ResNet-2d3d redraw theirs
-with ``normal_init_`` and ``kaiming_fan_out_init_``.
+tensors are torch's ``(B, C, T, H, W)``; convolutions are ``Conv3d``, an
+``nn.Conv3d`` (its default init is the init the JAX package copies:
+kaiming-uniform with a=sqrt(5), i.e. U(+-1/sqrt(fan_in))); S3D and
+ResNet-2d3d redraw theirs with ``normal_init_`` and
+``kaiming_fan_out_init_``.
+
+On the card each backbone's ``forward`` puts its input in
+``channels_last_3d`` memory (``card_layout``), and every convolution, batch
+norm, ReLU, residual add, pool and ``cat`` keeps it: cuDNN's bf16
+convolutions on Hopper are NHWC kernels, which take such a map without a
+transpose, and ATen's batch norm takes its channels-last kernels (through
+a 4-D view, ``_channels_last_4d``).
+Parameters and state dicts stay NCDHW, and CPU tensors keep the layout
+they come in.
 
 The JAX package's space-to-depth stem and phase-split stride-2 data gradient
 are rewrites of this same math for another machine; cuDNN convolutions take
@@ -37,10 +47,29 @@ import threading
 import torch
 from torch import nn
 
-from ..core import dist
+from ..core import dist, spans
 from ..ops.bn_stats import channel_sums, channel_sums_plain, use_kernel_stats
 
-Conv3d = nn.Conv3d
+
+def card_layout(x: torch.Tensor) -> torch.Tensor:
+    """A 5-D CUDA tensor in ``channels_last_3d`` memory (itself if it is
+    already); any other tensor as it is."""
+    if x.is_cuda and x.dim() == 5:
+        return x.contiguous(memory_format=torch.channels_last_3d)
+    return x
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` that counts, as ``nchw_convs`` in the open step
+    (``core/spans.py:count``), each call whose 5-D input is not in
+    ``channels_last_3d`` memory: on the card, a call that cuDNN transposes
+    to NHWC and back."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 5 and not x.is_contiguous(
+                memory_format=torch.channels_last_3d):
+            spans.count("nchw_convs")
+        return super().forward(x)
 
 
 def _memory_format(x: torch.Tensor) -> torch.memory_format:
@@ -48,6 +77,20 @@ def _memory_format(x: torch.Tensor) -> torch.memory_format:
             memory_format=torch.channels_last_3d):
         return torch.channels_last_3d
     return torch.contiguous_format
+
+
+def _channels_last_4d(x: torch.Tensor) -> torch.Tensor:
+    """A ``(N, C, T, H, W)`` map in ``channels_last_3d`` memory as the
+    ``(N, C, T*H, W)`` view of the same memory, which is ``channels_last``;
+    any other tensor as it is. On the card ATen's batch norm takes its
+    channels-last kernels for a 4-D channels-last map, and for a 5-D one its
+    general reductions, whose forward statistics hold a staging buffer of
+    hundreds of MB at the flagship's first-stage maps."""
+    if x.dim() == 5 and not x.is_contiguous() and x.is_contiguous(
+            memory_format=torch.channels_last_3d):
+        n, c, t, h, w = x.shape
+        return x.view(n, c, t * h, w)
+    return x
 
 
 def _sums(a: torch.Tensor, b: torch.Tensor):
@@ -360,7 +403,9 @@ class BatchNorm(nn.Module):
             # a recomputation recomputes them, with no sum kernel or
             # collective to repeat
             y, mean, invstd = torch.native_batch_norm(
-                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+                _channels_last_4d(x), self.weight, self.bias, None, None,
+                True, 0.0, self.eps)
+            y = y.view(x.shape)
             keep = None
             with torch.no_grad():
                 var = invstd.to(stat).pow(-2) - self.eps

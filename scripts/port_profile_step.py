@@ -9,7 +9,7 @@ kernel, the device's busy share of the wall time, and the step time without
 the profiler. ``DUALVAR_BN_STATS=pallas`` in the environment sends the batch
 norm's sums through the channel-sum kernel, as in training.
 
-    python3 scripts/port_profile_step.py --batch_size 32 [--channels_last 1]
+    python3 scripts/port_profile_step.py --batch_size 32
     python3 scripts/port_profile_step.py --preset paper_table2_moco_r21d \\
         --mode clip-sr-dtw --batch_size 32
     python3 scripts/port_profile_step.py --preset s3dg_k400 --batch_size 8
@@ -50,9 +50,6 @@ def main() -> int:
     p.add_argument("--model", default=None, help="the preset's unless given")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--steps", type=int, default=3)
-    p.add_argument("--channels_last", type=int, default=0, choices=[0, 1],
-                   help="experiment: keep the model's weights in "
-                        "channels_last_3d memory format")
     p.add_argument("--top", type=int, default=25)
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -74,8 +71,6 @@ def main() -> int:
                                   model=args.model or cfg.model.model),
         optim=dataclasses.replace(cfg.optim, batch_size=args.batch_size))
     setup = setup_training(cfg, "cuda")
-    if args.channels_last:
-        setup.model.to(memory_format=torch.channels_last_3d)
     with setup.loader as loader:
         frames = torch.from_numpy(next(loader.epoch(0))["frames"]).to("cuda")
     step, generator = setup.train_step, setup.generator
@@ -110,7 +105,7 @@ def main() -> int:
         "preset": args.preset, "net": cfg.model.net,
         "model": cfg.model.model, "mode": cfg.model.mode,
         "bn_stats": os.environ.get("DUALVAR_BN_STATS", "aten"),
-        "batch_size": args.batch_size, "channels_last": args.channels_last,
+        "batch_size": args.batch_size,
         "steps": args.steps, "ms_per_step_unprofiled": plain_ms,
         "ms_per_step_profiled": wall_ms / args.steps,
         "device_ms_per_step": device_ms / args.steps,

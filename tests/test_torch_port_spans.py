@@ -6,12 +6,13 @@ and the first records it keeps apart; the set-up spans' totals;
 the flagship step's stage spans and its ``host_syncs``; each reader's
 arithmetic on a hand-made record.
 
-One test runs on the card only (it skips without one): over one B=8
+Two tests run on the card only (they skip without one): over one B=8
 flagship step at its real shapes, the synchronizing calls that
 ``torch.cuda.set_sync_debug_mode("warn")`` reports equal the step's
-``host_syncs``, each made inside a ``dualvar.sync.*`` span. It imports no
-JAX; run it on the card with
-``python -m pytest --noconftest tests/test_torch_port_spans.py``.
+``host_syncs``, each made inside a ``dualvar.sync.*`` span; and in a bf16
+R(2+1)D and S3D-G step every ``Conv3d`` input is in ``channels_last_3d``
+memory and ``nchw_convs`` reads 0. The file imports no JAX; run it on the
+card with ``python -m pytest --noconftest tests/test_torch_port_spans.py``.
 """
 
 import collections
@@ -31,7 +32,7 @@ from dualvar_tpu_torch.train import pretrain
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 READERS = ("trainer.syncs", "trainer.sync_wait_ms", "trainer.enqueue_ms",
            "aug.ms", "losses.ms", "setup.model_s", "setup.first_step_s",
-           "setup.kernel_load_s")
+           "setup.kernel_load_s", "backbone.nchw_convs")
 
 
 @pytest.fixture(autouse=True)
@@ -110,6 +111,21 @@ def test_nesting_parents_step_ids_and_self_time(clock):
     assert lines[0] == (f"{spans.STEP}: host 7.750 ms, self 2.000 ms, "
                         "stream -, syncs 1 a step over 2")
     assert len(lines) == 6 and spans.summary([]) == []
+
+
+def test_count_adds_to_the_open_step_only():
+    spans.count("nchw_convs")  # no step open: nothing
+    with spans.span(spans.STEP):
+        spans.count("nchw_convs")
+        spans.count("nchw_convs", 3)
+        with spans.sync("aug_check"):
+            pass
+    spans.count("nchw_convs")
+    with spans.span(spans.STEP):
+        pass
+    first, second = spans.steps()
+    assert first["counts"] == {"nchw_convs": 4, "host_syncs": 1}
+    assert second["counts"] == {}
 
 
 def test_the_ring_keeps_its_last_steps_and_first_records(clock):
@@ -224,7 +240,7 @@ def _flagship(**data):
         optim=dataclasses.replace(cfg.optim, batch_size=2))
 
 
-def _step(cfg, device):
+def _step(cfg, device, with_task=False):
     task = pretrain.build_task(cfg)
     task.model.to(device).train()
     optimizer, scheduler = pretrain.make_optimizer(cfg, task.parameters(), 10)
@@ -235,7 +251,8 @@ def _step(cfg, device):
     frames = torch.randint(0, 256, (cfg.optim.batch_size,
                                     3 * cfg.data.seq_len, H0, W0, 3),
                            dtype=torch.uint8, device=device)
-    return step, frames, torch.Generator(device=device).manual_seed(3)
+    gen = torch.Generator(device=device).manual_seed(3)
+    return (step, frames, gen) + ((task,) if with_task else ())
 
 
 def test_flagship_step_spans_its_stages_and_counts_its_syncs():
@@ -262,6 +279,34 @@ def test_flagship_step_spans_its_stages_and_counts_its_syncs():
             n for name, n in v["syncs"].items()
             if name.startswith(spans.SYNC)) == v["syncs"][spans.STEP]
         assert v["syncs"]["dualvar.step.aug"] == v["counts"]["host_syncs"]
+
+
+def test_flagship_step_on_the_cpu_counts_every_nchw_convolution():
+    """On the CPU the backbone keeps NCDHW (``card_layout`` leaves a CPU
+    tensor as it is), so ``nchw_convs`` counts every ``Conv3d`` call of
+    the step whose input is not also channels-last (a map of one position
+    is both); a call outside a step counts nowhere."""
+    from dualvar_tpu_torch.models.layers import Conv3d
+
+    cfg = _flagship(seq_len=8, img_dim=32, scale_hw=(40, 36))
+    step, frames, gen, task = _step(cfg, "cpu", with_task=True)
+    convs = [m for m in task.model.modules() if isinstance(m, Conv3d)]
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append(not args[0].is_contiguous(
+            memory_format=torch.channels_last_3d))) for m in convs]
+    try:
+        step(frames, gen)
+        in_step = list(calls)
+        task.model.backbone(torch.zeros(1, 3, 8, 32, 32))  # outside a step
+    finally:
+        for h in hooks:
+            h.remove()
+    (view,) = spans.steps()
+    # the backbone twice: the 3B views, then the B shuffled clips
+    assert len(in_step) == 2 * len(convs) == 48
+    assert view["counts"]["nchw_convs"] == sum(in_step) > 40
+    assert len(calls) == 3 * len(convs) and len(spans.steps()) == 1
 
 
 def _reader(name):
@@ -330,6 +375,57 @@ def test_readers_on_a_hand_made_record(clock, monkeypatch):
     assert _read("aug.ms", trace_steps=0) is None
     assert _read("setup.model_s") == pytest.approx(1.5)
     assert _read("setup.first_step_s") == pytest.approx(2.0)
+
+
+def test_nchw_convs_reader_is_the_window_mean(monkeypatch):
+    """``backbone.nchw_convs``: None with no step, the mean count over the
+    window's unprofiled steps (a step that counted nothing reads 0), and
+    None from a program without ``spans.count``."""
+    assert _read("backbone.nchw_convs") is None
+    for k in (0, 2, 4, 9):
+        with spans.span(spans.STEP):
+            spans.count("nchw_convs", k)
+    assert _read("backbone.nchw_convs") == pytest.approx(15 / 3)
+    assert _read("backbone.nchw_convs", window_steps=2) == pytest.approx(6.5)
+    spans.reset()
+    for _ in range(3):
+        with spans.span(spans.STEP):
+            pass
+    assert _read("backbone.nchw_convs") == 0.0
+    monkeypatch.delattr(spans, "count")
+    assert _read("backbone.nchw_convs") is None
+
+
+@pytest.mark.parametrize("preset", ["paper_table1_k400", "s3dg_k400"])
+def test_every_convolution_of_a_bf16_step_is_channels_last_on_the_card(
+        preset):
+    """A B=8 bf16 step of the flagship (R(2+1)D) and of S3D-G at their real
+    shapes, after a warm-up step: every ``Conv3d`` input in
+    ``channels_last_3d`` memory, and the step's ``nchw_convs`` 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: this test runs on the card only")
+    from dualvar_tpu_torch.models.layers import Conv3d
+
+    cfg = PRETRAIN_PRESETS[preset]
+    cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, batch_size=8))
+    step, frames, gen, task = _step(cfg, "cuda", with_task=True)
+    step(frames, gen)
+    torch.cuda.synchronize()
+    spans.reset()
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].is_contiguous(
+            memory_format=torch.channels_last_3d)))
+        for m in task.model.modules() if isinstance(m, Conv3d)]
+    try:
+        step(frames, gen)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    (view,) = spans.steps()
+    assert len(seen) > 40 and all(seen), (len(seen), sum(seen))
+    assert view["counts"].get("nchw_convs", 0) == 0
 
 
 def test_every_sync_of_a_flagship_step_is_counted_on_the_card():
