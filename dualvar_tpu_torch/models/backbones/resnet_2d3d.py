@@ -11,7 +11,7 @@ kaiming normal over the fan-out. r2d3d18 outputs (B, 256, 16, 4, 4) for a
 4, 4) with 17,401,920 (the reference's registry claims 2048 channels; its
 layer 4 gives 256 * 4). Submodule names follow the flax tree (``conv1``,
 ``bn1``, ``layer{i}_block{j}.{conv1,bn1,...,downsample_conv,
-downsample_bn}``).
+downsample_bn}``); the stem's max pool, which holds no state, is ``pool1``.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..layers import (BatchNorm, Conv3d, card_layout, kaiming_fan_out_init_,
-                      max_pool3d)
+from ..layers import (BatchNorm, Conv3d, MaxPool3d, card_layout,
+                      kaiming_fan_out_init_)
 
 
 def _conv(in_ch, out_ch, kernel_size, stride=1, padding=0) -> nn.Conv3d:
@@ -113,6 +113,7 @@ class ResNet2d3d(nn.Module):
         super().__init__()
         self.conv1 = _conv(3, 64, (1, 7, 7), (1, 2, 2), (0, 3, 3))
         self.bn1 = BatchNorm(64)
+        self.pool1 = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
         self.blocks: list[str] = []
         inplanes = 64
         for li, planes in enumerate((64, 128, 256, 256)):
@@ -134,7 +135,7 @@ class ResNet2d3d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.conv1(card_layout(x))))
-        x = max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        x = self.pool1(x)
         for name in self.blocks:
             x = getattr(self, name)(x)
         return x

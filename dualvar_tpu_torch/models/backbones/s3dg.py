@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import (BatchNorm, Conv3d, card_layout, max_pool3d,
+from ...core import spans
+from ..layers import (BatchNorm, Conv3d, MaxPool3d, card_layout,
                       normal_init_)
 
 # block name -> out planes [b0, b1a, b1b, b2a, b2b, b3b] (reference
@@ -91,13 +92,15 @@ class STConv3d(nn.Module):
 
 class SelfGating(nn.Module):
     """S3D-G feature gating: sigmoid(fc(mean over T, H, W)) * x (reference
-    s3dg.py:68-78). The mean of a bfloat16 map is taken in float32."""
+    s3dg.py:68-78). The mean of a bfloat16 map is taken in float32. Each
+    call counts as ``gates`` in the open step (``core/spans.py:count``)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.fc = nn.Linear(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spans.count("gates")
         acc = torch.float32 if x.dtype in (torch.bfloat16,
                                            torch.float16) else x.dtype
         w = torch.sigmoid(self.fc(x.mean(dim=(2, 3, 4), dtype=acc)))
@@ -107,7 +110,8 @@ class SelfGating(nn.Module):
 class SepInception(nn.Module):
     """Four-branch separable Inception block (reference s3dg.py:81-132):
     1x1; 1x1 then separable 3x3; 1x1 then separable 3x3; 3x3x3 max pool
-    (stride 1, padding 1) then 1x1; concatenated on channels."""
+    (stride 1, padding 1, ``branch3_0``) then 1x1; concatenated on
+    channels."""
 
     def __init__(self, in_ch: int, planes: list[int], gating: bool = False):
         super().__init__()
@@ -117,6 +121,7 @@ class SepInception(nn.Module):
         self.branch1_1 = STConv3d(b1a, b1b, 3, padding=1)
         self.branch2_0 = BasicConv3d(in_ch, b2a)
         self.branch2_1 = STConv3d(b2a, b2b, 3, padding=1)
+        self.branch3_0 = MaxPool3d(3, 1, 1)
         self.branch3_1 = BasicConv3d(in_ch, b3b)
         self.gating = gating
         if gating:
@@ -128,7 +133,7 @@ class SepInception(nn.Module):
         outs = [self.branch0(x),
                 self.branch1_1(self.branch1_0(x)),
                 self.branch2_1(self.branch2_0(x)),
-                self.branch3_1(max_pool3d(x, 3, 1, 1))]
+                self.branch3_1(self.branch3_0(x))]
         if self.gating:
             outs = [getattr(self, f"gating_b{i}")(o)
                     for i, o in enumerate(outs)]
@@ -173,6 +178,7 @@ class PackedSepInception(nn.Module):
         self.temporal_b1_kernel = _packed_kernel(b1b, b1b, (3, 1, 1))
         self.temporal_b2_kernel = _packed_kernel(b2b, b2b, (3, 1, 1))
         self.bn_temporal = BatchNorm(b1b + b2b)
+        self.branch3_0 = MaxPool3d(3, 1, 1)
         self.branch3_1 = BasicConv3d(in_ch, b3b)
         self.gating = gating
         if gating:
@@ -192,44 +198,54 @@ class PackedSepInception(nn.Module):
                      padding=(1, 0, 0))
         w = torch.relu(self.bn_temporal(w))
         outs = [y[:, :b0], w[:, :b1b], w[:, b1b:],
-                self.branch3_1(max_pool3d(x, 3, 1, 1))]
+                self.branch3_1(self.branch3_0(x))]
         if self.gating:
             outs = [getattr(self, f"gating_b{i}")(o)
                     for i, o in enumerate(outs)]
         return torch.cat(outs, dim=1)
 
 
-# (block, max pool (kernel, stride, padding) before it or None)
+# (block, max pool (kernel, stride, padding) before it or None); the pool
+# before Mixed_<n>b is the module MaxPool_<n>a
 _MIXED = (("Mixed_3b", ((1, 3, 3), (1, 2, 2), (0, 1, 1))),
           ("Mixed_3c", None), ("Mixed_4b", (3, 2, 1)), ("Mixed_4c", None),
           ("Mixed_4d", None), ("Mixed_4e", None), ("Mixed_4f", None),
           ("Mixed_5b", (2, 2, 0)), ("Mixed_5c", None))
 
 
+def _pool_name(block: str) -> str:
+    return f"MaxPool_{block[6]}a"
+
+
 class S3D(nn.Module):
     """Reference backbone/s3dg.py:135-217 (S3D, and S3D-G with
     ``gating``); ``packed`` swaps every ``SepInception`` for
-    ``PackedSepInception``."""
+    ``PackedSepInception``. The max pools are modules named as the
+    published network's (``MaxPool_2a`` after the stem, ``MaxPool_3a``,
+    ``MaxPool_4a``, ``MaxPool_5a`` before Mixed_3b, 4b, 5b); they hold no
+    state."""
 
     def __init__(self, gating: bool = False, packed: bool = False):
         super().__init__()
         self.Conv_1a = STConv3d(3, 64, 7, stride=2, padding=3)
+        self.MaxPool_2a = MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1))
         self.Conv_2b = BasicConv3d(64, 64)
         self.Conv_2c = STConv3d(64, 192, 3, padding=1)
         in_ch = 192
-        for name, _ in _MIXED:
+        for name, pool in _MIXED:
+            if pool is not None:
+                self.add_module(_pool_name(name), MaxPool3d(*pool))
             block = (PackedSepInception if packed else SepInception)(
                 in_ch, MIX_PLANES[name], gating)
             self.add_module(name, block)
             in_ch = block.out_channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.Conv_1a(card_layout(x))
-        x = max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        x = self.MaxPool_2a(self.Conv_1a(card_layout(x)))
         x = self.Conv_2c(self.Conv_2b(x))
         for name, pool in _MIXED:
             if pool is not None:
-                x = max_pool3d(x, *pool)
+                x = getattr(self, _pool_name(name))(x)
             x = getattr(self, name)(x)
         return x
 

@@ -9,10 +9,10 @@ ResNet-2d3d redraw theirs with ``normal_init_`` and
 
 On the card each backbone's ``forward`` puts its input in
 ``channels_last_3d`` memory (``card_layout``), and every convolution, batch
-norm, ReLU, residual add, pool and ``cat`` keeps it: cuDNN's bf16
-convolutions on Hopper are NHWC kernels, which take such a map without a
-transpose, and ATen's batch norm takes its channels-last kernels (through
-a 4-D view, ``_channels_last_4d``).
+norm, ReLU, residual add, pool (``MaxPool3d``) and ``cat`` keeps it:
+cuDNN's bf16 convolutions on Hopper are NHWC kernels, which take such a map
+without a transpose, and ATen's batch norm takes its channels-last kernels
+(through a 4-D view, ``_channels_last_4d``).
 Parameters and state dicts stay NCDHW, and CPU tensors keep the layout
 they come in.
 
@@ -420,11 +420,11 @@ class BatchNorm(nn.Module):
         return y
 
 
-def max_pool3d(x: torch.Tensor, kernel_size, stride=None,
-               padding=0) -> torch.Tensor:
-    """torch.nn.MaxPool3d, which pads with -inf as flax's ``nn.max_pool``
-    does in the JAX package's ``layers.max_pool3d``."""
-    return torch.nn.functional.max_pool3d(x, kernel_size, stride, padding)
+class MaxPool3d(nn.MaxPool3d):
+    """``nn.MaxPool3d`` (``F.max_pool3d``, which pads with -inf as flax's
+    ``nn.max_pool`` does in the JAX package's ``layers.max_pool3d``), a
+    module of the port's own so that module hooks and the benchmark's spans
+    find every pool by its class name, as ``Conv3d``'s are found."""
 
 
 def normal_init_(conv: nn.Conv3d, std: float = 0.01) -> nn.Conv3d:
